@@ -2,7 +2,7 @@
 2D convection-diffusion (5-point stencil + upwind convection) at n=10^5.
 
 Builds the COO on host (vectorized NumPy), iterates f32 Arnoldi on the
-TPU for the dominant eigenpairs, then polishes on host f64 with the
+device for the dominant eigenpairs, then polishes on host f64 with the
 residual-controlled block inverse iteration
 (solvers.refine.general_inverse_iteration_refine) and certifies via the
 f64 BACKWARD error ‖A x − λ x‖/‖λ‖ (no dense oracle exists at this size,

@@ -6,10 +6,10 @@ with imaginary off-diagonals driven through the full solver surface
 runs that operator CLASS at n = 2^20: a complex Hermitian hopping chain
 (random-phase nearest + next-nearest hops, real on-site terms) through
 
-  realify -> RCM -> 128x128 symmetric diag+upper pack -> streaming
-  Pallas kernel  (all via sparse.accelerate)
+  realify -> RCM -> 128x128 symmetric diag+upper pack -> the
+  symmetric GPU kernel  (all via sparse.accelerate)
 
-and measures (a) the on-chip complex SpMV rate, (b) the SAME-STRUCTURE
+and measures (a) the on-device complex SpMV rate, (b) the SAME-STRUCTURE
 real operator for the "within 2x of the real sym path" criterion
 (round-3 verdict item 2), and (c) a ground-state eigsh solve with f64
 Rayleigh certification on host.
@@ -19,10 +19,13 @@ Usage: python benchmarks/bench_complex.py [--n 1048576] [--reps 5]
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def build_complex_hopping(n, seed=0):
@@ -44,34 +47,14 @@ def build_complex_hopping(n, seed=0):
 
 
 def chain_rate(op, nnz, reps, label):
-    import jax
+    """(seconds per matvec, Gnnz/s) of ``op`` from jitted chains."""
     import jax.numpy as jnp
-    from functools import partial
 
-    @partial(jax.jit, static_argnums=(2,))
-    def chain(params, x, k):
-        def body(i, a):
-            y = op._matvec_fn(params, a)
-            return (y / jnp.linalg.norm(y)).astype(x.dtype)
+    from eigenex_tpu.utils.benchtime import chain_seconds
 
-        return jax.lax.fori_loop(0, k, body, x)
-
-    x = jnp.asarray(
-        np.random.default_rng(0).standard_normal(op.shape[1]).astype(np.float32)
-    )
-
-    def timed(k):
-        np.asarray(chain(op._params, x, k)[:16])  # force real completion
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            np.asarray(chain(op._params, x, k)[:16])
-            ts.append(time.perf_counter() - t0)
-        return float(np.median(ts))
-
-    t_lo, t_hi = timed(32), timed(288)
-    per = (t_hi - t_lo) / 256
-    rate = nnz / per / 1e9 if per > 0 else float("nan")
+    x = jnp.asarray(np.random.default_rng(0).standard_normal(op.shape[1]), jnp.float32)
+    per = chain_seconds(op._matvec_fn, op._params, x, k=64, reps=reps)
+    rate = nnz / per / 1e9
     print(f"# {label}: {per*1e3:.3f} ms/matvec = {rate:.2f} Gnnz/s", file=sys.stderr)
     return per, rate
 
@@ -84,10 +67,12 @@ def main():
     args = ap.parse_args()
     n = args.n
 
-    sys.path.insert(0, ".")
-    import jax
-
+    sys.path.insert(0, ROOT)
     from eigenex_tpu.sparse.accelerate import accelerate
+    from eigenex_tpu.utils.benchtime import configure_compile_cache, device_report
+
+    configure_compile_cache(ROOT)
+    device = device_report()
 
     r, c, v = build_complex_hopping(n)
     cnnz = len(v)
@@ -115,20 +100,17 @@ def main():
         file=sys.stderr,
     )
 
-    per_c = rate_c = per_r = rate_r = None
-    if jax.default_backend() == "tpu":
-        per_c, rate_c = chain_rate(
-            acc.as_linear_operator(), cnnz, args.reps, "complex (realified sym kernel)"
-        )
-        per_r, rate_r = chain_rate(
-            accR.as_linear_operator(), cnnz, args.reps, "real same-structure"
-        )
-        if per_c and per_r:
-            print(
-                f"# complex/real time ratio: {per_c/per_r:.2f}x "
-                f"(criterion: within 2x of the real sym path)",
-                file=sys.stderr,
-            )
+    per_c, rate_c = chain_rate(
+        acc.as_linear_operator(), cnnz, args.reps, "complex (realified sym route)"
+    )
+    per_r, rate_r = chain_rate(
+        accR.as_linear_operator(), cnnz, args.reps, "real same-structure"
+    )
+    print(
+        f"# complex/real time ratio: {per_c/per_r:.2f}x "
+        f"(criterion: within 2x of the real sym path)",
+        file=sys.stderr,
+    )
 
     solve = {}
     if args.solve:
@@ -171,7 +153,8 @@ def main():
                 "complex_nnz": cnnz,
                 "complex_gnnz_per_s": rate_c,
                 "real_twin_gnnz_per_s": rate_r,
-                "time_ratio_vs_real": (per_c / per_r) if (per_c and per_r) else None,
+                "time_ratio_vs_real": per_c / per_r,
+                "device": device,
                 **solve,
             }
         )

@@ -2,16 +2,15 @@
 
 Builds the total-Sz=0 sector of an L-site XXZ chain with the native C++
 enumerator (dim C(L, L/2); L=24 → 2.7M states, ~35M nonzeros), then runs
-f32 Lanczos on the TPU and polishes the energy on host in f64.
+f32 Lanczos on the GPU and polishes the energy on host in f64.
 
-Round 4: the device operator rides the ACCELERATED path by default —
-RCM reorder + 128x128 symmetric (diag+upper) block pack + the Pallas
-streaming kernels (sparse/accelerate.py) — replacing the scalar COO
-segment-sum SpMV that measured 0.04-0.07 Gnnz/s on v5e.  The couplings
-(±J/2, ±Jz/4) are dyadic, so bf16 block storage is bitwise lossless and
-is auto-selected.  ``--no-accelerate`` runs the old scalar path for
-comparison; ``--spmv-reps`` also measures the raw on-chip SpMV rate via
-the two-point chain-slope protocol (median of N reps).
+The device operator rides the ACCELERATED path by default — RCM reorder
++ 128x128 symmetric (diag+upper) block pack + the symmetric GPU kernel
+(sparse/accelerate.py).  The couplings (±J/2, ±Jz/4) are dyadic, so
+bf16 block storage is bitwise lossless and is auto-selected.
+``--no-accelerate`` runs the scalar COO path for comparison;
+``--spmv-reps`` also times the SpMV alone (median of N jitted chains,
+waited for with ``block_until_ready``).
 
 For L ≤ 14 the energy is cross-checked against dense diagonalization;
 at larger L correctness is certified by the f64 residual of the refined
@@ -22,29 +21,13 @@ Usage: python benchmarks/bench_heisenberg.py [--L 24] [--no-accelerate]
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-
-def spmv_chain_rate(op, dim, nnz, reps):
-    """Per-matvec seconds via the shared protocol
-    (:mod:`eigenex_tpu.utils.benchtime`): fused-chain slope, medians of
-    ``reps``, forced host-copy sync."""
-    import jax.numpy as jnp
-
-    from eigenex_tpu.utils.benchtime import chain_slope
-
-    x = jnp.asarray(
-        np.random.default_rng(0).standard_normal(op.shape[1]).astype(np.float32)
-    )
-    per, stats = chain_slope(
-        op._matvec_fn, op._params, x, k_lo=32, k_hi=288, reps=reps
-    )
-    if per is None:
-        return None, None, stats
-    return per, nnz / per / 1e9, stats
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main():
@@ -58,7 +41,11 @@ def main():
 
     import jax
 
-    sys.path.insert(0, ".")
+    sys.path.insert(0, ROOT)
+    from eigenex_tpu.utils.benchtime import configure_compile_cache, device_report
+
+    configure_compile_cache(ROOT)
+    device = device_report()
     from eigenex_tpu import native
     from eigenex_tpu.solvers.api import eigsh
     from eigenex_tpu.solvers.refine import rayleigh_refine
@@ -106,19 +93,21 @@ def main():
         op_for_spmv = operand.as_linear_operator()
         mode = f"accelerated_sym_{st['dtype']}"
 
-    spmv_stats = None
-    if args.spmv_reps and jax.default_backend() == "tpu":
-        per, rate, spmv_stats = spmv_chain_rate(op_for_spmv, dim, len(v), args.spmv_reps)
-        spmv_rate = rate
-        if rate is None:
-            print("# on-chip SpMV: slope not resolvable (noise > signal)", file=sys.stderr)
-        else:
-            print(
-                f"# on-chip SpMV ({mode}): {per*1e3:.3f} ms/matvec = {rate:.2f} Gnnz/s "
-                f"(chain slope over 256 matvecs, median of {args.spmv_reps}, "
-                f"spread {spmv_stats['spread_hi_s']*1e3:.1f} ms)",
-                file=sys.stderr,
-            )
+    if args.spmv_reps:
+        import jax.numpy as jnp
+
+        from eigenex_tpu.utils.benchtime import chain_seconds
+
+        x = jnp.asarray(np.random.default_rng(0).standard_normal(dim), jnp.float32)
+        if op_for_spmv.shape[1] != dim:
+            x = operand.embed(np.asarray(x))
+        per = chain_seconds(op_for_spmv._matvec_fn, op_for_spmv._params, x, k=64, reps=args.spmv_reps)
+        spmv_rate = len(v) / per / 1e9
+        print(
+            f"# device SpMV ({mode}): {per*1e3:.3f} ms/matvec = {spmv_rate:.2f} Gnnz/s "
+            f"(median of {args.spmv_reps} chains of 64)",
+            file=sys.stderr,
+        )
 
     t0 = time.time()
     res = eigsh(operand, k=1, which="SA", tol=args.tol, max_subspace=160)
@@ -166,7 +155,7 @@ def main():
                 "solve_seconds_cold": t_cold,
                 "iters_per_s": res.iterations / t_solve,
                 "spmv_gnnz_per_s": spmv_rate,
-                "spmv_protocol": spmv_stats,
+                "device": device,
             }
         )
     )

@@ -6,7 +6,8 @@ application G x = Aᴴ(A x) through
   (b) the bipartite-RCM + general-BSR packed container
       (``accelerate()`` → ``svds(accelerate=True)``'s operator),
 
-with the shared chain-slope protocol.  Prints one JSON line.
+each timed as the median of jitted chains of Gram applications.  Prints
+one JSON line naming the device.
 
 Usage: python benchmarks/bench_svds_rect.py [--m 400000] [--n 200000]
 """
@@ -16,7 +17,8 @@ import json
 import os
 import sys
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import numpy as np
 
@@ -43,23 +45,18 @@ def main():
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
 
-    import jax
-
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache"),
-        )
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
     import jax.numpy as jnp
 
     from eigenex_tpu.sparse.accelerate import accelerate
     from eigenex_tpu.sparse.coo import COOMatrix
-    from eigenex_tpu.utils.benchtime import chain_slope
+    from eigenex_tpu.utils.benchtime import (
+        chain_seconds,
+        configure_compile_cache,
+        device_report,
+    )
+
+    configure_compile_cache(ROOT)
+    device = device_report()
 
     r, c, v, shape = banded_rect_triplets(args.m, args.n, args.bw, args.per_row)
     nnz = len(v)
@@ -77,8 +74,8 @@ def main():
         return p.rmatvec(p.matvec(x))
 
     x = jnp.asarray(np.random.default_rng(1).standard_normal(shape[1]).astype(np.float32))
-    per_coo, st_coo = chain_slope(gram_coo, op, x, k_lo=4, k_hi=20, reps=args.reps)
-    rate_coo = (2 * nnz / per_coo / 1e9) if per_coo else None
+    per_coo = chain_seconds(gram_coo, op, x, k=16, reps=args.reps)
+    rate_coo = 2 * nnz / per_coo / 1e9
     print(f"# COO Gram: {rate_coo and round(rate_coo, 4)} Gnnz/s "
           f"(both matvecs counted)", file=sys.stderr)
 
@@ -98,8 +95,8 @@ def main():
     xe = jnp.asarray(
         np.random.default_rng(2).standard_normal(mat.shape[1]).astype(np.float32)
     )
-    per_acc, st_acc = chain_slope(gram_acc, (opA, opH), xe, reps=args.reps)
-    rate_acc = (2 * nnz / per_acc / 1e9) if per_acc else None
+    per_acc = chain_seconds(gram_acc, (opA, opH), xe, reps=args.reps)
+    rate_acc = 2 * nnz / per_acc / 1e9
     print(f"# accelerated Gram: {rate_acc and round(rate_acc, 4)} Gnnz/s",
           file=sys.stderr)
 
@@ -110,7 +107,7 @@ def main():
         accelerated_gnnz_per_s=rate_acc and round(rate_acc, 4),
         speedup=(round(rate_acc / rate_coo, 1) if rate_coo and rate_acc else None),
         fill=round(st["fill"], 5),
-        protocol=dict(reps=args.reps, coo=st_coo, acc=st_acc),
+        device=device,
     )
     print(json.dumps(out))
 

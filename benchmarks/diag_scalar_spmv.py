@@ -1,5 +1,5 @@
-"""Round-4 diagnostic: why does the config-3 COO path run at ~11-35 Mnnz/s,
-and which scalar-sparse formulation is fastest on this chip?
+"""Diagnostic: how fast is the config-3 COO path, and which scalar-sparse
+formulation is fastest on the device it runs on?
 
 Candidates, all computing y = A @ x for the Heisenberg sector operator:
   coo_segsum   : val * x[col] gather + sorted segment_sum   (current path)

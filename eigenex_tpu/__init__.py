@@ -1,4 +1,4 @@
-"""eigenex_tpu — a TPU-native Krylov eigensolver and tensor library.
+"""eigenex_tpu — a JAX Krylov eigensolver and tensor library.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability surface of
 ``versmc/cmpt-eigenex`` (a serial header-only C++/Eigen extension
@@ -7,7 +7,7 @@ exp(xA)v, COO/CSR/BSR sparse operators with Pallas SpMV kernels, tensor
 SVD, multi-index interpretation, string-labeled einsum, block-sparse
 tensors with symmetry-sector-aware contraction, and mesh-sharded
 distributed execution — none of it a port: the compute path is built
-for the MXU/VPU and XLA's compilation model.
+for accelerator matrix units and XLA's compilation model.
 """
 
 from .block.block_tensor import BlockTensor, block_tensor_norm, block_tensor_squared_norm

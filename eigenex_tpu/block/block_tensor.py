@@ -1,6 +1,6 @@
 """Block-sparse tensor keyed by per-axis symmetry-sector (block) indices.
 
-TPU-native re-design of include/cmpt/eigen_ex/block_tensor.hpp (the live
+JAX-native re-design of include/cmpt/eigen_ex/block_tensor.hpp (the live
 CRTP ``BlockTensorBase``/``BlockTensor``, :1176-2456, plus its einsum
 specializations :2458-2869; the deprecated ``old::`` namespace :23-1140
 is intentionally not reproduced).
@@ -12,7 +12,7 @@ blocks.  Only nonzero blocks are stored; contraction skips block pairs
 whose sector indices mismatch — the quantum-number conservation
 selection rule (:2014-2029).
 
-TPU design notes:
+Design notes:
 
 - The block *key set* is trace-time Python data (the reference's
   ``std::map`` insertions are host-side here too); per-block compute is
@@ -20,7 +20,7 @@ TPU design notes:
   :meth:`block_pytree` sees a fixed key set — exactly the "fix the
   sector keys at trace time" plan of SURVEY.md §7.
 - Contraction groups same-shaped block pairs and dispatches them as one
-  **batched** ``jnp.einsum`` per shape group, so the MXU sees large
+  **batched** ``jnp.einsum`` per shape group, so the matrix units see large
   batched matmuls instead of many small ones (:meth:`contract`).
 """
 
@@ -53,7 +53,7 @@ def _as_structure(s) -> AddIndices:
 
 def is_sparse_block(blk) -> bool:
     """True when a stored block is a sparse container (COO/BSR) rather
-    than a dense array — the TPU-first scaling upgrade over the
+    than a dense array — the scaling upgrade over the
     reference's always-dense ``Eigen::Tensor`` blocks
     (block_tensor.hpp:1204-1206): symmetry-sector Hamiltonians keep each
     sector sparse and apply it through the container's matvec."""
@@ -429,7 +429,7 @@ class BlockTensor:
         AddIndices.  Selection rule (:2014-2029): a block pair
         contributes only if the sector indices match on every contracted
         axis.  Per-pair dense contractions with identical shapes are
-        **batched into one einsum** (MXU-friendly), then accumulated by
+        **batched into one einsum** (matmul-friendly), then accumulated by
         result key (:2050-2051).
         """
         self._require_dense("contract")
@@ -691,7 +691,7 @@ def block_einsum(
     _LAST_CANDIDATE_COUNT = len(combos)  # test instrumentation
 
     # group contributing combos by (block shapes, result key) so each
-    # group runs as ONE batched einsum on stacked blocks (MXU-batched,
+    # group runs as ONE batched einsum on stacked blocks (batched,
     # same scheme as BlockTensor.contract)
     groups: dict[tuple, list[tuple]] = {}
     for keys in combos:

@@ -136,10 +136,10 @@ def heisenberg_block_hamiltonian(
 
     storage: "sparse" (default) keeps each sector block as its COOMatrix
     — O(nnz) memory, so L=24 (sector dim 2.7M) fits where a dense block
-    would need 58 TB; "bsr" packs each sector into the TPU BSR-ELL
-    layout (``block_shape`` defaults to (8, 128) on TPU, (4, 4)
-    elsewhere); "dense" reproduces the reference's dense-per-block
-    design (block_tensor.hpp:1204-1206) for small L."""
+    would need 58 TB; "bsr" packs each sector into the BSR-ELL layout
+    (``block_shape`` defaults to (4, 4)); "dense" reproduces the
+    reference's dense-per-block design (block_tensor.hpp:1204-1206) for
+    small L."""
     if storage not in ("sparse", "bsr", "dense"):
         raise ValueError(f"storage must be sparse|bsr|dense, got {storage!r}")
     s = sector_structure(L)
@@ -151,15 +151,11 @@ def heisenberg_block_hamiltonian(
         elif storage == "sparse":
             bt.set_block((n_up, n_up), coo)
         else:
-            import jax
-
             from ..sparse.bsr import bsr_from_coo_arrays
 
-            if block_shape is None:
-                block_shape = (8, 128) if jax.default_backend() == "tpu" else (4, 4)
             bsr = bsr_from_coo_arrays(
                 np.asarray(coo.row), np.asarray(coo.col), np.asarray(coo.val),
-                coo.shape, block_shape,
+                coo.shape, block_shape or (4, 4),
             )
             bt.set_block((n_up, n_up), bsr)
     return bt

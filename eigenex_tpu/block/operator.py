@@ -9,7 +9,7 @@ jit-able matvec.
 Scaling design (round-2 rework):
 
 - **Dense blocks** are grouped by shape; each group applies as ONE
-  batched MXU einsum, with its inputs collected by a single gather
+  batched einsum, with its inputs collected by a single gather
   (``x[idx_in]`` for a precomputed (G, bn) index matrix) and its outputs
   accumulated by a single scatter-add (``y.at[idx_out].add``) — no
   per-block Python loop in the traced program, so hundreds of stored
@@ -21,7 +21,7 @@ Scaling design (round-2 rework):
   ``BlockTensor.set_block``), so a symmetry-sector Hamiltonian never
   densifies: each sector block applies through its own sparse matvec at
   full BSR/COO speed (sector counts are small — the Python loop here is
-  per *sector*, not per matrix entry).  This is the TPU-first upgrade
+  per *sector*, not per matrix entry).  This is the scaling upgrade
   over the reference's dense ``Eigen::Tensor`` blocks
   (block_tensor.hpp:1204-1206), which made L=24 sectors (2.7M dim)
   impossible to hold densely.

@@ -10,7 +10,7 @@ whose rank is a runtime value and whose axes are addressed by NAME, so
 index bookkeeping (the ``from().to()`` relabeling of ProductIndices,
 multi_indices.hpp:382-458) generalizes to whole-tensor algebra.
 
-TPU-native realization: rank is still a trace-time property (XLA needs
+JAX-native realization: rank is still a trace-time property (XLA needs
 static shapes), but it is a *value* of this class rather than a template
 parameter — one ``DTensor`` type covers every rank, holding a dense
 ``jax.Array`` plus an axis-label tuple.  All arithmetic is

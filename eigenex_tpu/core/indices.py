@@ -1,6 +1,6 @@
 """Multi-dimensional index interpretation.
 
-TPU-native re-design of the reference's index-arithmetic layer
+JAX-native re-design of the reference's index-arithmetic layer
 (include/cmpt/eigen_ex/multi_indices.hpp):
 
 - ``Slice`` (start, length, stride)           ~ multi_indices.hpp:81
@@ -14,7 +14,7 @@ TPU-native re-design of the reference's index-arithmetic layer
   (multi_indices.hpp:806-894), including periodic extension.
 
 Design note: in the reference these classes drive element-wise device
-loops (the general einsum gather, einsum.hpp:1000-1018).  On TPU that
+loops (the general einsum gather, einsum.hpp:1000-1018).  On an accelerator that
 would be catastrophically slow, so here they are **trace-time-only
 metadata** — pure Python/NumPy, never traced by JAX.  All device compute
 they used to perform is expressed instead as XLA ops (reshape /

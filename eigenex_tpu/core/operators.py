@@ -1,6 +1,6 @@
 """Matrix-free linear operators with a composition algebra.
 
-TPU-native re-design of the reference's operator layer:
+JAX-native re-design of the reference's operator layer:
 
 - The universal operator type in the reference is the raw callable
   ``MatMulFunction = std::function<void(const Scalar*, Scalar*)>``
@@ -271,15 +271,15 @@ def _shift_rmatvec(params, x):
 
 
 def _dense_matvec(m, x):
-    return m @ x
+    return jnp.matmul(m, x, precision="highest")
 
 
 def _dense_rmatvec(m, x):
-    return m.conj().T @ x
+    return jnp.matmul(m.conj().T, x, precision="highest")
 
 
 def _dense_matmat(m, x):
-    return m @ x
+    return jnp.matmul(m, x, precision="highest")
 
 
 def aslinearoperator(a, shape=None, dtype=None) -> LinearOperator:

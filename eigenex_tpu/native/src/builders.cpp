@@ -1,7 +1,7 @@
 // Native host-side builders for eigenex_tpu.
 //
 // The reference is header-only C++ whose only "runtime" is portable
-// template math (SURVEY.md §2 language note); the TPU build keeps all
+// template math (SURVEY.md §2 language note); this library keeps all
 // device compute in XLA/Pallas, but the HOST-side assembly of large
 // operators (COO sort/merge, BSR-ELL packing, sector-Hamiltonian
 // enumeration) is O(nnz) pointer-chasing that pure Python/NumPy does
@@ -428,12 +428,10 @@ int64_t mm_read(const char* path, int64_t* rows, int64_t* cols,
 // Round-4 additions: the scalar-sparse acceleration pipeline.
 //
 // The library's own physics workloads (sector Hamiltonians, .mtx imports)
-// arrive as unstructured scalar COO, whose TPU SpMV (gather + segment_sum)
-// measures ~0.04-0.07 Gnnz/s on v5e — scalar gathers serialize at ~13
-// cycles/element.  The fix is host-side: a band-reducing permutation
-// (reverse Cuthill-McKee) followed by dense-block packing, after which the
-// existing Pallas BSR kernels stream at the HBM roofline (measured 650-790
-// GB/s) and effective nnz/s is kernel-rate x block fill.  These builders
+// arrive as unstructured scalar COO, whose SpMV is a scalar gather +
+// segment_sum.  The block routes instead want a band-reducing permutation
+// (reverse Cuthill-McKee) followed by dense-block packing, after which
+// effective nnz/s is the block-streaming rate x block fill.  These builders
 // make that preprocessing O(nnz log nnz) in compiled code:
 //   rcm_permutation       ~ scipy.sparse.csgraph.reverse_cuthill_mckee
 //   blk_widths            - one sort, reused by both packers via `order`

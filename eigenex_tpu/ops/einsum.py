@@ -1,6 +1,6 @@
 """String-labeled einsum / contraction DSL.
 
-TPU-native re-design of include/cmpt/eigen_ex/einsum.hpp: the fluent
+JAX-native re-design of include/cmpt/eigen_ex/einsum.hpp: the fluent
 ``contract(A, B).from_(iiA, iiB).to(iiR)`` fast path (:357-520), the
 general ``einsum(A[, B]).from_(...).to(...)`` DSL (:550-741) supporting
 traces, diagonals and contractions on one or two tensors, and the label
@@ -152,8 +152,8 @@ class _Contract:
 
 def contract(a, b) -> _Contract:
     """``contract(A, B).from_({"i","j"}, {"j","k"}).to({"i","k"})`` — the
-    two-tensor pure-contraction fast path (einsum.hpp:357-520).  On TPU
-    both paths emit the same single XLA dot, so this is sugar."""
+    two-tensor pure-contraction fast path (einsum.hpp:357-520).  Both
+    paths emit the same single XLA dot, so this is sugar."""
     from ..block.block_tensor import BlockTensor
 
     if isinstance(a, BlockTensor) or isinstance(b, BlockTensor):

@@ -1,6 +1,6 @@
 """Lazy tensor Kronecker (outer) product.
 
-TPU-native re-design of include/cmpt/eigen_ex/tensor_kronecker_product.hpp:
+JAX-native re-design of include/cmpt/eigen_ex/tensor_kronecker_product.hpp:
 ``TensorKroneckerProduct`` (:19) — an O(1)-storage virtual tensor whose
 axes are the concatenation of the two factors' axes and whose
 coefficients are products of factor coefficients (:81-95), with
@@ -10,7 +10,7 @@ In the reference this "virtual joined tensor" is what the general einsum
 gathers over element-by-element (einsum.hpp:892,1000-1018).  Here the
 einsum layer never gathers scalars — it plans XLA contractions — so the
 lazy product's job is (a) API parity, (b) cheap coefficient peeking, and
-(c) a fused dense materialization (one outer-product einsum on the MXU)
+(c) a fused dense materialization (one outer-product einsum as matmuls)
 when an explicit tensor is wanted.
 """
 

@@ -1,13 +1,13 @@
 """Blocked orthogonalization primitives.
 
-TPU-native re-design of the reference's Gram-Schmidt machinery:
+JAX-native re-design of the reference's Gram-Schmidt machinery:
 ``schmidt_orthogonalize`` (util.hpp:400-417), ``OrthogonalSpace``
 (util.hpp:419-471), the per-step selective reorthogonalization loop of
 Lanczos (lanczos.hpp:411-426) and the full modified-GS of Arnoldi
 (arnoldi.hpp:380-383).
 
 The reference performs k sequential dot-products per reorthogonalization
-pass; on TPU that serializes the MXU.  Here every projection is a pair
+pass; on an accelerator that serializes the matrix units.  Here every projection is a pair
 of matmuls — classical Gram-Schmidt, applied **twice** (CGS2,
 "twice is enough": Giraud et al.) which is the hardware-friendly,
 numerically equivalent-or-better replacement for modified GS.  All
@@ -48,34 +48,32 @@ def norm_psum(v, axis_name=None):
 def project_coefficients(V, v, axis_name=None, mask=None):
     """Inner products ``c_j = <V_j, v>`` for all basis rows at once.
 
-    V: (k, n[_local]) basis rows; v: (n[_local],).  One matvec on the MXU
-    instead of k sequential dots (replaces lanczos.hpp:414-416).
+    V: (k, n[_local]) basis rows; v: (n[_local],).  One matvec instead
+    of k sequential dots (replaces lanczos.hpp:414-416).
     ``mask`` (k,) zeroes out coefficients of inactive basis rows — used
     by fixed-shape solver loops where only rows < k are valid.
 
-    Precision note (round-3 audit): these projections run at the
-    backend's DEFAULT matmul precision ON PURPOSE.  V is the CARRIED
-    Krylov basis inside ``lax.while_loop``/``fori_loop`` chunks, and a
-    per-call ``precision="highest"`` forces a layout on V that conflicts
-    with the in-loop ``dynamic_update_slice`` writes — XLA then copies
-    the full multi-GB basis every iteration (measured 3.3× slowdown on
-    the L=24 Heisenberg run; reverting restored 63 s).  The Krylov
-    accuracy design does not need it: CGS2 keeps the basis orthogonal to
-    working precision regardless, α/β come from exact vdot reductions,
-    and the hybrid f64 refinement supplies the 1e-10-grade eigenvalues
-    (the solver stages that DO need f32-exact matmuls — Rayleigh–Ritz,
-    rotations, Gram panels — are out-of-loop and keep "highest").
+    Precision note: every projection runs at ``Precision.HIGHEST``.  At
+    DEFAULT a GPU runs f32 matmuls in TF32 (10-bit mantissa); the
+    projections then leave the basis orthogonal only to ~1e-3, and the
+    L=24 Heisenberg solve needs thousands of iterations instead of 160
+    and stops outside its tolerance (PERF.md).
     """
-    c = _psum_if(V.conj() @ v, axis_name)
+    c = _psum_if(jnp.matmul(V.conj(), v, precision=lax.Precision.HIGHEST), axis_name)
     if mask is not None:
         c = jnp.where(mask, c, jnp.zeros_like(c))
     return c
 
 
+def _combine(c, V):
+    """``sum_j c_j V_j``, at HIGHEST like the projections."""
+    return jnp.matmul(c, V, precision=lax.Precision.HIGHEST)
+
+
 def project_out(V, v, axis_name=None, mask=None):
     """One classical-GS pass: ``v - sum_j <V_j, v> V_j``."""
     c = project_coefficients(V, v, axis_name, mask)
-    return v - c @ V
+    return v - _combine(c, V)
 
 
 def cgs2(V, v, axis_name=None, mask=None):
@@ -88,9 +86,9 @@ def cgs2(V, v, axis_name=None, mask=None):
     Hessenberg column.
     """
     c1 = project_coefficients(V, v, axis_name, mask)
-    v = v - c1 @ V
+    v = v - _combine(c1, V)
     c2 = project_coefficients(V, v, axis_name, mask)
-    v = v - c2 @ V
+    v = v - _combine(c2, V)
     return v, c1 + c2
 
 
@@ -99,7 +97,7 @@ def gram_schmidt(vectors, normalize=True):
     (cf. schmidt_orthogonalize util.hpp:400-417).
 
     Implemented as thin QR of the transposed stack — mathematically the
-    same span/ordering, numerically stabler and MXU-batched.
+    same span/ordering, numerically stabler and batched.
     Returns the orthonormalized rows (k, n).
     """
     V = jnp.asarray(vectors)

@@ -1,22 +1,31 @@
-"""Pallas TPU kernels for block-sparse SpMV/SpMM.
+"""Half-traffic symmetric block SpMV/SpMM kernel for NVIDIA GPUs (Pallas
+through Triton).
 
-The reference's SpMV is a serial COO scatter (triplets_matrix.hpp:
-314-318).  The TPU-native hot path instead runs over the BSR-ELL layout
-(:mod:`eigenex_tpu.sparse.bsr`): one grid program per block row, the
-column-block ids scalar-prefetched into SMEM so each program gathers its
-x blocks with dynamic slices and accumulates ``data[r,k] @ x[cols[r,k]]``
-on the MXU.  All shapes are static; padding slots multiply zero blocks.
+:class:`~eigenex_tpu.sparse.sym_bsr.SymBSRMatrix` stores the diagonal
+blocks plus the strictly-upper block triangle.  Its XLA formulation
+(``SymBSRMatrix._xla_matvec``) runs one einsum for ``y[r] += B·x[c]`` and
+another for ``y[c] += Bᵀ·x[r]``, so every upper block is read from device
+memory twice — the byte count of full storage.  This kernel reads each
+block once and applies it twice:
 
-Design notes (per the Pallas guide):
-- ``PrefetchScalarGridSpec(num_scalar_prefetch=1)`` makes ``block_cols``
-  available before the body runs — required for data-dependent gathers.
-- x is staged VMEM-resident as a (n_block_cols, bn) 2-D array so block
-  gathers are row slices (TPU dislikes 1-D shapes).
-- The k-loop is a static Python loop (k_max is small by construction);
-  the accumulator lives in registers/VMEM at f32.
-- f64/complex inputs fall back to the XLA path in
-  :meth:`BSRMatrix.matvec` — TPU hardware is f32/bf16; the Krylov
-  recurrence keeps its critical scalars in f64 on host regardless.
+- one program per block row ``r`` loads its diagonal block and its
+  ``ku`` upper blocks;
+- ``B·x[c]`` accumulates into the program's own y tile, added to
+  ``y[r]`` at the end;
+- ``Bᵀ·x[r]`` is added into ``y[c]`` with ``atomic_add`` (other programs
+  write the same rows, in no fixed order).
+
+Blocks are upcast in registers and every sum is taken in f32.  The
+matvec is an elementwise multiply and reduce (no tensor cores, so no
+TF32).  The multi-RHS product uses the tensor cores only at f32 accuracy:
+X is split into three bf16 parts (hi/mid/lo), f32 blocks likewise, and
+the significant products of parts accumulate in f32.  Atomics add in a varying order, so results
+differ in the last bits from run to run.
+
+Padding slots (column 0, zero data) are skipped: a real upper block has
+``c > r``.  The output is a zeroed input aliased to the result, which is
+also what makes interpret mode (``interpret=True``, the CPU tests) start
+from zero.
 """
 
 from __future__ import annotations
@@ -25,1048 +34,180 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-__all__ = [
-    "bsr_matvec_pallas",
-    "bsr_matmat_pallas",
-    "sym_bsr_matvec_pallas",
-    "sym_bsr_matmat_pallas",
-]
+__all__ = ["kernel_supports", "sym_bsr_matvec_pallas", "sym_bsr_matmat_pallas"]
 
+#: storage dtypes the kernel takes; f64 and complex run on XLA on purpose
+KERNEL_DTYPES = (jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16))
 
-def _dot_mode(block_dtype):
-    """Precision strategy for a kernel whose blocks are stored as
-    ``block_dtype`` — see :func:`_sdot`.
+#: RHS columns per program in the SpMM: wider panels re-read the blocks
+#: once per column group instead of exhausting the registers
+_MAX_COLS = 32
 
-    XLA:TPU (and Mosaic) multiply f32 dot_generals in ONE bf16 pass by
-    default, silently flooring f32-stored operators at ~2.6e-3 relative
-    error (measured on v5e), so f32 storage requests HIGHEST (the
-    3x3-pass decomposition, f32 multiply accuracy).
-
-    bf16 storage is subtler (round-4 finding): a single bf16 pass also
-    truncates the f32 **x vector**, which poisons Krylov iterations even
-    when the stored blocks are bf16-EXACT (the accelerated Heisenberg
-    operator has dyadic couplings — storage lossless, yet DEFAULT
-    floored Lanczos at ~2e-3 successive-Ritz change and eigsh burned
-    30k iterations without converging).  Requesting HIGHEST fixes the
-    accuracy but costs ~1.9x (285 vs 548 Gnnz/s on the streaming sym
-    bench — the extra passes do NOT hide under HBM traffic).  The right
-    move exploits that the BLOCK side needs no decomposition: split x
-    into three bf16 components (hi/mid/lo) and run three DEFAULT bf16
-    passes — f32-grade accuracy at half of HIGHEST's MXU work."""
-    return "split" if block_dtype == jnp.bfloat16 else "highest"
+#: warps per program, from a sweep on the H100 (PERF.md): 4 for the
+#: matvec, 8 for the SpMM's tensor-core tiles
+_MATVEC_PARAMS = pltriton.CompilerParams(num_warps=4, num_stages=2)
+_MATMAT_PARAMS = pltriton.CompilerParams(num_warps=8, num_stages=2)
 
 
-def _sdot(xv, blk, dims, mode):
-    """``dot_general(xv, blk)`` with storage-aware precision (see
-    :func:`_dot_mode`).  ``xv`` is the f32 x-side operand, ``blk`` the
-    (already f32-cast) block; ``dims`` the contracting-dim pairs."""
-    dn = (dims, ((), ()))
-    if mode == "split":
-        xhi = xv.astype(jnp.bfloat16).astype(jnp.float32)
-        xmid = (xv - xhi).astype(jnp.bfloat16).astype(jnp.float32)
-        xlo = xv - xhi - xmid
-        out = None
-        for part in (xhi, xmid, xlo):
-            r = jax.lax.dot_general(
-                part, blk, dn, preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.DEFAULT,
-            )
-            out = r if out is None else out + r
-        return out
-    return jax.lax.dot_general(
-        xv, blk, dn, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
+def kernel_supports(sym) -> bool:
+    """Whether ``sym``'s storage fits the kernel: f32 or bf16 blocks,
+    square, a power of two and at least 16 wide (the tensor-core operand
+    minimum of the SpMM)."""
+    bm, bn = sym.block_shape
+    return (
+        jnp.dtype(sym.dtype) in KERNEL_DTYPES
+        and bm == bn
+        and bm >= 16
+        and bm & (bm - 1) == 0
     )
 
 
-#: block rows processed per grid program — keeps the output tile
-#: (R, bm) legal for the (8, 128) f32 tiling rule and amortizes grid
-#: overhead; data tile per program is R·kmax·bm·bn·4 bytes.
-_ROWS_PER_PROGRAM = 8
+def _out_struct(shape, *arrays):
+    """Output aval; under ``shard_map`` it carries the mesh axes it varies
+    over (y varies wherever the block data or x does)."""
+    for a in arrays:
+        vma = getattr(jax.typeof(a), "vma", None)
+        if vma:
+            return jax.ShapeDtypeStruct(shape, jnp.float32, vma=vma)
+    return jax.ShapeDtypeStruct(shape, jnp.float32)
 
 
-def _spmv_kernel(kmax: int, rows_per: int, cols_ref, data_ref, x_ref, y_ref):
-    """``rows_per`` block rows per program:
-    y[r] = Σ_k data[r, k] @ x[cols[r, k]].
+def _matvec_kernel(cols_ref, diag_ref, upper_ref, x_ref, y0_ref, y_ref):
+    del y0_ref  # aliased to y_ref: zero on entry
+    r = pl.program_id(0)
+    bm = diag_ref.shape[1]
+    xr = x_ref[pl.ds(r * bm, bm)]
+    acc = jnp.sum(diag_ref[r].astype(jnp.float32) * xr[None, :], axis=1)
 
-    The block product is computed in ROW-VECTOR form,
-    ``(1, bn) · contract(dim 1 of blk) → (1, bm)`` via ``dot_general`` —
-    the gathered x row stays in the lane dimension, avoiding the
-    lane→sublane transpose that ``blk @ x[:, None]`` would need (measured
-    on v5e: 365 vs 283 Gnnz/s bf16, 200 vs ~150-190 f32).
+    def slot(k, acc):
+        c = cols_ref[r, k]
 
-    ``cols_ref`` is the FLATTENED (nbr*kmax,) column-id array: SMEM pads
-    the last axis to 128 lanes, so a (nbr, kmax) layout would waste
-    128/kmax× scalar memory and overflow the 1 MB SMEM budget."""
-    r0 = pl.program_id(0) * rows_per
-    bm = y_ref.shape[-1]
-    prec = _dot_mode(data_ref.dtype)
-    for i in range(rows_per):
-        acc = jnp.zeros((1, bm), jnp.float32)
-        for k in range(kmax):
-            c = cols_ref[(r0 + i) * kmax + k]
-            xb = x_ref[c, :][None, :]  # (1, bn) — x stays f32: dynamic
-            # single-row loads need 8-sublane tiling; bf16's 16-row tiles
-            # reject them
-            blk = data_ref[i, k].astype(jnp.float32)  # (bm, bn)
-            acc = acc + _sdot(xb, blk, ((1,), (1,)), prec)
-        y_ref[i, :] = acc[0].astype(y_ref.dtype)
+        def apply():
+            B = upper_ref[r, k].astype(jnp.float32)
+            xc = x_ref[pl.ds(c * bm, bm)]
+            pltriton.atomic_add(
+                y_ref, pl.ds(c * bm, bm), jnp.sum(B * xr[:, None], axis=0)
+            )
+            return acc + jnp.sum(B * xc[None, :], axis=1)
+
+        return lax.cond(c > r, apply, lambda: acc)
+
+    acc = lax.fori_loop(0, upper_ref.shape[1], slot, acc)
+    pltriton.atomic_add(y_ref, pl.ds(r * bm, bm), acc)
 
 
 @partial(jax.jit, static_argnames=("interpret",))
-def bsr_matvec_pallas(bsr, x: jax.Array, interpret: bool = False) -> jax.Array:
-    """y = A @ x for a BSR-ELL matrix via a Pallas TPU kernel.
-
-    Falls back to the XLA path for dtypes the MXU does not support
-    natively (f64, complex) and for row counts the tile rules reject."""
-    nbr, kmax, bm, bn = bsr.data.shape
-    R = _ROWS_PER_PROGRAM
-    if not interpret and jax.default_backend() != "tpu":
-        return bsr.matvec(x)  # Pallas TPU kernels need TPU (or interpret mode)
-    if bsr.dtype not in (jnp.float32, jnp.bfloat16) or nbr % R or bm % 8 or bn % 128:
-        return bsr.matvec(x)
-    nbc = bsr.n_block_cols
-    x_dtype = jnp.float32 if bsr.dtype == jnp.bfloat16 else bsr.dtype
-    x2 = x.astype(x_dtype).reshape(nbc, bn)
-    out_dtype = jnp.float32 if bsr.dtype == jnp.bfloat16 else bsr.dtype
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nbr // R,),
-        in_specs=[
-            pl.BlockSpec(
-                (R, kmax, bm, bn),
-                lambda i, cols: (i, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # x2 resident
-        ],
-        out_specs=pl.BlockSpec((R, bm), lambda i, cols: (i, 0), memory_space=pltpu.VMEM),
-    )
-    # under shard_map the output aval must carry the mesh axes it varies
-    # over (vma); y varies wherever the block data does (x may be the
-    # all_gather'ed, mesh-invariant copy)
-    vma = getattr(jax.typeof(bsr.data), "vma", None) or getattr(
-        jax.typeof(x2), "vma", None
-    )
-    out_struct = (
-        jax.ShapeDtypeStruct((nbr, bm), out_dtype, vma=vma)
-        if vma
-        else jax.ShapeDtypeStruct((nbr, bm), out_dtype)
-    )
-    y = pl.pallas_call(
-        partial(_spmv_kernel, kmax, R),
-        out_shape=out_struct,
-        grid_spec=grid_spec,
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nbr * kmax * bm * bn,
-            bytes_accessed=bsr.data.size * bsr.data.dtype.itemsize
-            + x2.size * x2.dtype.itemsize
-            + nbr * bm * x2.dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(bsr.block_cols.reshape(-1), bsr.data, x2)
-    return y.reshape(bsr.shape[0])
-
-
-def _pick_sym_rows_per(
-    nbr: int, ku: int, bm: int, bn: int, itemsize: int, resident_bytes: int = 0
-) -> int:
-    """Largest block-row count per program that divides ``nbr`` and whose
-    double-buffered diag+upper stream PLUS the VMEM-resident x/y panels
-    stays under the ~16 MB scoped-VMEM limit (14 MB budget for headroom).
-    Returns 0 when even one row per program cannot fit (caller falls back
-    to the XLA path)."""
-    budget = 14 * 2**20 - resident_bytes
-    for r in (64, 32, 16, 8, 4, 2, 1):
-        if nbr % r == 0 and 2 * r * (1 + ku) * bm * bn * itemsize <= budget:
-            return r
-    return 0
-
-
-def _pick_sym_strip(nbr: int, ku: int, bm: int, bn: int, itemsize: int, reach: int) -> int:
-    """Strip length (block rows per grid program) for the STREAMING
-    symmetric kernel: must divide ``nbr``, be ≥ the band reach (every
-    upper block's column then lands in the own or the immediately-next
-    strip), and fit the double-buffered block stream + the two x windows
-    + the y tile + the carry buffer in scoped VMEM.  Returns 0 when no
-    strip qualifies (caller falls back)."""
-    budget = 14 * 2**20
-    for s in (1024, 512, 256, 128, 64, 32, 16, 8):
-        if nbr % s or s < reach:
-            continue
-        stream = 2 * s * (1 + ku) * bm * bn * itemsize  # diag+upper blocks
-        xwin = 2 * 2 * s * bn * 4  # two f32 x windows, double-buffered
-        ytile = 3 * s * bm * 4  # f32 out tile (double-buffered) + carry
-        if stream + xwin + ytile <= budget:
-            return s
-    return 0
-
-
-def _sym_spmv_stream_kernel(
-    ku: int, strip: int, reach: int,
-    cols_ref, diag_ref, upper_ref, xc_ref, xn_ref, y_ref, carry_ref,
-):
-    """STREAMING symmetric SpMV — the no-size-cap variant of
-    :func:`_sym_spmv_kernel` for BANDED symmetric operators (block band
-    reach ≤ strip).  Nothing is fully VMEM-resident: program ``i``
-    streams strip ``i`` of the diag+upper blocks, an x window of strips
-    ``i`` and ``i+1`` (every upper column c ∈ (r, r+reach] lands there),
-    and emits y strip ``i``.
-
-    The transpose contributions y[c] += Bᵀ·x[r] scatter either into the
-    own y tile (c in strip i) or into a persistent VMEM ``carry`` buffer
-    (c in strip i+1) — the TPU grid is sequential, so program i+1 starts
-    by folding the carry into its own y tile before zeroing it for the
-    strip after.  Each off-diagonal block is still read from HBM exactly
-    once and applied to both triangles: the half-traffic win survives at
-    any problem size, for ~12 extra streamed bytes/row (x read twice as
-    cur+next windows, f32) against the ≥256 block bytes/row it halves."""
-    pid = pl.program_id(0)
-
-    @pl.when(pid == 0)
-    def _():
-        carry_ref[...] = jnp.zeros_like(carry_ref)
-
-    y_ref[...] = carry_ref[...].astype(y_ref.dtype)
-    carry_ref[...] = jnp.zeros_like(carry_ref)
-    prec = _dot_mode(diag_ref.dtype)
-
-    for i in range(strip):
-        xr = xc_ref[i, :][None, :]  # (1, bn) f32
-        D = diag_ref[i].astype(jnp.float32)
-        acc = _sdot(xr, D, ((1,), (1,)), prec)
-        for k in range(ku):
-            c = cols_ref[(pid * strip + i) * ku + k]
-            off = c - pid * strip  # padding slots (col 0, zero data) may go
-            B = upper_ref[i, k].astype(jnp.float32)  # negative: clamp +
-            yc = _sdot(xr, B, ((1,), (0,)), prec)
-            if i + reach < strip:
-                # STATIC fast path (all but the last `reach` rows of the
-                # strip): c ≤ r + reach < strip boundary, so the column
-                # is in the own window and the scatter hits the own y
-                # tile — no select, no predication, no carry
-                o1 = jnp.maximum(off, 0)
-                xb = xc_ref[pl.ds(o1, 1), :]
-                acc = acc + _sdot(xb, B, ((1,), (1,)), prec)
-                y_ref[pl.ds(o1, 1), :] = y_ref[pl.ds(o1, 1), :] + yc.astype(y_ref.dtype)
-                continue
-            in_cur = off < strip
-            o1 = jnp.clip(off, 0, strip - 1)
-            o2 = jnp.clip(off - strip, 0, strip - 1)
-            xb = jnp.where(in_cur, xc_ref[pl.ds(o1, 1), :], xn_ref[pl.ds(o2, 1), :])
-            acc = acc + _sdot(xb, B, ((1,), (1,)), prec)
-
-            @pl.when(in_cur)
-            def _(o1=o1, yc=yc):
-                y_ref[pl.ds(o1, 1), :] = y_ref[pl.ds(o1, 1), :] + yc.astype(y_ref.dtype)
-
-            @pl.when(jnp.logical_not(in_cur))
-            def _(o2=o2, yc=yc):
-                carry_ref[pl.ds(o2, 1), :] = carry_ref[pl.ds(o2, 1), :] + yc
-
-        y_ref[pl.ds(i, 1), :] = y_ref[pl.ds(i, 1), :] + acc.astype(y_ref.dtype)
-
-
-def _sym_stream_call(sym, x: jax.Array, strip: int, interpret: bool) -> jax.Array:
-    """pallas_call plumbing for :func:`_sym_spmv_stream_kernel`."""
-    nbr, ku, bm, bn = sym.upper_data.shape
-    reach = max(sym.band_reach, 0)
-    if reach > strip:
-        raise ValueError(
-            f"streaming sym kernel needs strip >= band_reach ({strip} < {reach})"
-        )
-    nbc = sym.shape[1] // bn
-    x2 = x.astype(jnp.float32).reshape(nbc, bn)
-    ngrid = nbr // strip
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(ngrid,),
-        in_specs=[
-            pl.BlockSpec(
-                (strip, bm, bn), lambda i, cols: (i, 0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (strip, ku, bm, bn), lambda i, cols: (i, 0, 0, 0), memory_space=pltpu.VMEM
-            ),
-            # x window, own strip + next strip (clamped at the edge — the
-            # last strip's columns never leave it, c < nbr)
-            pl.BlockSpec((strip, bn), lambda i, cols: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (strip, bn),
-                lambda i, cols: (jnp.minimum(i + 1, ngrid - 1), 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec((strip, bm), lambda i, cols: (i, 0), memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((strip, bm), jnp.float32)],
-    )
-    vma = getattr(jax.typeof(sym.upper_data), "vma", None) or getattr(
-        jax.typeof(x2), "vma", None
-    )
-    out_struct = (
-        jax.ShapeDtypeStruct((nbr, bm), jnp.float32, vma=vma)
-        if vma
-        else jax.ShapeDtypeStruct((nbr, bm), jnp.float32)
-    )
+def sym_bsr_matvec_pallas(sym, x: jax.Array, interpret: bool = False) -> jax.Array:
+    """y = A @ x (f32) for a :class:`SymBSRMatrix` whose storage
+    :func:`kernel_supports`."""
+    nbr, ku, bm, _ = sym.upper_data.shape
+    n = sym.shape[0]
+    x = x.astype(jnp.float32)
     itemsize = sym.upper_data.dtype.itemsize
-    y = pl.pallas_call(
-        partial(_sym_spmv_stream_kernel, ku, strip, reach),
-        out_shape=out_struct,
-        grid_spec=grid_spec,
+    return pl.pallas_call(
+        _matvec_kernel,
+        out_shape=_out_struct((n,), sym.upper_data, x),
+        grid=(nbr,),
+        input_output_aliases={4: 0},
         interpret=interpret,
+        compiler_params=_MATVEC_PARAMS,
+        name="sym_bsr_spmv",
         cost_estimate=pl.CostEstimate(
             flops=2 * (sym.diag_data.size + 2 * sym.upper_data.size),
             bytes_accessed=(sym.diag_data.size + sym.upper_data.size) * itemsize
-            + 2 * x2.size * 4
-            + nbr * bm * 4,
+            + 4 * (n * (ku + 1) + 2 * n),
             transcendentals=0,
         ),
-    )(sym.upper_cols.reshape(-1), sym.diag_data, sym.upper_data, x2, x2)
-    return y.reshape(sym.shape[0])
+    )(sym.upper_cols, sym.diag_data, sym.upper_data, x, jnp.zeros((n,), jnp.float32))
 
 
-def _pick_ring_params(nbr: int, ku: int, bm: int, bn: int, itemsize: int, reach: int):
-    """(s, W) for the RING streaming kernel: strip length s dividing
-    ``nbr`` whose double-buffered block stream fits scoped VMEM alongside
-    the two (W, 128) f32 rings, W = (ceil(reach/s)+1)*s.  Returns (0, 0)
-    when nothing fits (reach too large for VMEM rings, or indivisible
-    nbr)."""
-    budget = 14 * 2**20
-    if reach < 1:
-        return 0, 0
-    for s in (32, 16, 8, 4):
-        if nbr % s:
-            continue
-        koff = -(-reach // s)
-        W = (koff + 1) * s
-        stream = 2 * s * ((1 + ku) * bm * bn * itemsize + bn * 4 + bm * 4)
-        rings = W * (bn + bm) * 4
-        if stream + rings <= budget:
-            return s, W
-    return 0, 0
+def _bf16_parts(A, n: int):
+    """``n`` bf16 parts whose f32 sum is ``A`` (to 8n bits of mantissa):
+    one for bf16 input, three recover an f32 value exactly."""
+    if A.dtype == jnp.bfloat16:
+        return [A]
+    parts = []
+    for _ in range(n):
+        part = A.astype(jnp.bfloat16)
+        A = A - part.astype(jnp.float32)
+        parts.append(part)
+    return parts
 
 
-def _sym_spmv_ring_kernel(
-    ku: int, s: int, W: int, nstrips: int,
-    cols_ref, diag_ref, upper_ref, xt_ref, y_ref, xring_ref, yring_ref,
-):
-    """FAR-REACH streaming symmetric SpMV: the band reach exceeds any
-    VMEM-fitting strip (the strip kernel needs strip >= reach), so x and
-    the y accumulator travel in (W, 128) VMEM RING buffers with modular
-    addressing — ring row of global block row g is ``g % W``, where
-    W = (ceil(reach/s)+1)*s covers every upper block's column.
-
-    Grid runs ``nstrips + Koff`` programs: the first Koff are WARMUP
-    (compute masked) that prefill the x ring — program p ingests the
-    pipeline-streamed x tile for strip p (index map min(p, nstrips-1))
-    into ring slot (p*s) %% W, then programs p >= Koff compute strip
-    t = p - Koff.  Transpose contributions y[c] += Bᵀx[r] scatter into
-    the y ring at c %% W; rows of strip t are complete when program
-    t+Koff finishes (contributions only flow FORWARD), are copied to the
-    streamed out tile, and their ring rows are zeroed for reuse.  ELL
-    padding slots (col 0, zero blocks) alias ring row 0 and add zeros —
-    harmless.  VMEM is independent of n: stream tiles + two ~reach-row
-    rings (the L=24 Heisenberg sector, reach 485, needs ~0.5 MB of
-    rings where the resident kernel would need 21.6 MB of panels)."""
-    p = pl.program_id(0)
-    koff = W // s - 1
-
-    @pl.when(p == 0)
-    def _():
-        yring_ref[...] = jnp.zeros_like(yring_ref)
-
-    # ingest the streamed x tile (strip p) into its ring slot — every
-    # program, unconditionally: tail programs (p >= nstrips) re-ingest a
-    # clamped duplicate into a slot no remaining compute reads
-    slot = (p % (koff + 1)) * s
-    xring_ref[pl.ds(slot, s), :] = xt_ref[...]
-
-    @pl.when(p >= koff)
-    def _():
-        t = p - koff
-        base = t * s
-        start = (base % W)
-        prec = _dot_mode(diag_ref.dtype)
-        for j in range(s):
-            xr = xring_ref[pl.ds(start + j, 1), :]  # (1, bn)
-            D = diag_ref[j].astype(jnp.float32)
-            acc = _sdot(xr, D, ((1,), (1,)), prec)
-            for k in range(ku):
-                c = cols_ref[(base + j) * ku + k]
-                off = jax.lax.rem(c, jnp.asarray(W, c.dtype))
-                xb = xring_ref[pl.ds(off, 1), :]
-                B = upper_ref[j, k].astype(jnp.float32)
-                acc = acc + _sdot(xb, B, ((1,), (1,)), prec)
-                yc = _sdot(xr, B, ((1,), (0,)), prec)
-                yring_ref[pl.ds(off, 1), :] = yring_ref[pl.ds(off, 1), :] + yc
-            yring_ref[pl.ds(start + j, 1), :] = (
-                yring_ref[pl.ds(start + j, 1), :] + acc
+def _block_dot(B, X, trans: bool):
+    """``B @ X`` (``Bᵀ @ X`` when ``trans``) at f32 accuracy on the tensor
+    cores: both operands split into bf16 parts (bf16 blocks are one part
+    already), and the products of parts whose weights exceed 2⁻²⁴ summed
+    in f32 — three bf16 products for bf16 blocks, six for f32 blocks."""
+    dims = (((0 if trans else 1,), (0,)), ((), ()))
+    out = None
+    for i, b in enumerate(_bf16_parts(B, 3)):
+        for j, x in enumerate(_bf16_parts(X, 3)[: 3 - i]):
+            d = lax.dot_general(
+                b, x, dims, precision=lax.Precision.HIGHEST,
+                preferred_element_type=jnp.float32,
             )
-        # strip t is complete: emit and recycle its ring rows
-        y_ref[...] = yring_ref[pl.ds(start, s), :].astype(y_ref.dtype)
-        yring_ref[pl.ds(start, s), :] = jnp.zeros((s, y_ref.shape[-1]), jnp.float32)
+            out = d if out is None else out + d
+    return out
 
 
-def _sym_ring_call(sym, x: jax.Array, s: int, W: int, interpret: bool) -> jax.Array:
-    """pallas_call plumbing for :func:`_sym_spmv_ring_kernel`."""
-    nbr, ku, bm, bn = sym.upper_data.shape
-    nstrips = nbr // s
-    koff = W // s - 1
-    nbc = sym.shape[1] // bn
-    x2 = x.astype(jnp.float32).reshape(nbc, bn)
+def _matmat_kernel(pw, cols_ref, diag_ref, upper_ref, x_ref, y0_ref, y_ref):
+    del y0_ref  # aliased to y_ref: zero on entry
+    r = pl.program_id(0)
+    bm = diag_ref.shape[1]
+    cs = pl.ds(pl.program_id(1) * pw, pw)
+    Xr = x_ref[pl.ds(r * bm, bm), cs]
+    acc = _block_dot(diag_ref[r], Xr, trans=False)
 
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nstrips + koff,),
-        in_specs=[
-            pl.BlockSpec(
-                (s, bm, bn),
-                lambda p, cols: (jnp.maximum(p - (W // s - 1), 0), 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (s, ku, bm, bn),
-                lambda p, cols: (jnp.maximum(p - (W // s - 1), 0), 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            # x tile for strip p (prefill during warmup, lookahead after)
-            pl.BlockSpec(
-                (s, bn),
-                lambda p, cols: (jnp.minimum(p, nbr // s - 1), 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (s, bm),
-            lambda p, cols: (jnp.maximum(p - (W // s - 1), 0), 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((W, bn), jnp.float32),  # x ring
-            pltpu.VMEM((W, bm), jnp.float32),  # y accumulator ring
-        ],
-    )
-    vma = getattr(jax.typeof(sym.upper_data), "vma", None) or getattr(
-        jax.typeof(x2), "vma", None
-    )
-    out_struct = (
-        jax.ShapeDtypeStruct((nbr, bm), jnp.float32, vma=vma)
-        if vma
-        else jax.ShapeDtypeStruct((nbr, bm), jnp.float32)
-    )
-    itemsize = sym.upper_data.dtype.itemsize
-    y = pl.pallas_call(
-        partial(_sym_spmv_ring_kernel, ku, s, W, nstrips),
-        out_shape=out_struct,
-        grid_spec=grid_spec,
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * (sym.diag_data.size + 2 * sym.upper_data.size),
-            bytes_accessed=(sym.diag_data.size + sym.upper_data.size) * itemsize
-            + x2.size * 4
-            + nbr * bm * 4,
-            transcendentals=0,
-        ),
-    )(sym.upper_cols.reshape(-1), sym.diag_data, sym.upper_data, x2)
-    return y.reshape(sym.shape[0])
+    def slot(k, acc):
+        c = cols_ref[r, k]
 
-
-def _pick_ring_params_mm(
-    nbr: int, ku: int, bm: int, bn: int, p: int, itemsize: int, reach: int
-):
-    """(s, W) for the multi-RHS ring kernel — the rings hold (W, p, bn)
-    slabs, so the budget scales with p."""
-    budget = 14 * 2**20
-    if reach < 1:
-        return 0, 0
-    for s in (32, 16, 8, 4):
-        if nbr % s:
-            continue
-        koff = -(-reach // s)
-        W = (koff + 1) * s
-        stream = 2 * s * ((1 + ku) * bm * bn * itemsize + p * bn * 4 + p * bm * 4)
-        rings = W * p * (bn + bm) * 4
-        if stream + rings <= budget:
-            return s, W
-    return 0, 0
-
-
-def _sym_spmm_ring_kernel(
-    ku: int, s: int, W: int, nstrips: int,
-    cols_ref, diag_ref, upper_ref, xt_ref, y_ref, xring_ref, yring_ref,
-):
-    """Multi-RHS twin of :func:`_sym_spmv_ring_kernel`: X and the Y
-    accumulator travel as (W, p, bn) slab RINGS (p sublanes, block axis
-    lanes — the transposed-slab layout of the other SpMM kernels), same
-    warmup/modular-addressing scheme."""
-    p_id = pl.program_id(0)
-    koff = W // s - 1
-
-    @pl.when(p_id == 0)
-    def _():
-        yring_ref[...] = jnp.zeros_like(yring_ref)
-
-    slot = (p_id % (koff + 1)) * s
-    xring_ref[pl.ds(slot, s)] = xt_ref[...]
-
-    @pl.when(p_id >= koff)
-    def _():
-        t = p_id - koff
-        base = t * s
-        start = base % W
-        prec = _dot_mode(diag_ref.dtype)
-        for j in range(s):
-            Xr = xring_ref[pl.ds(start + j, 1)][0]  # (p, bn)
-            D = diag_ref[j].astype(jnp.float32)
-            acc = _sdot(Xr, D, ((1,), (1,)), prec)  # (p, bm)
-            for k in range(ku):
-                c = cols_ref[(base + j) * ku + k]
-                off = jax.lax.rem(c, jnp.asarray(W, c.dtype))
-                Xb = xring_ref[pl.ds(off, 1)][0]
-                B = upper_ref[j, k].astype(jnp.float32)
-                acc = acc + _sdot(Xb, B, ((1,), (1,)), prec)
-                YC = _sdot(Xr, B, ((1,), (0,)), prec)  # (p, bn)
-                yring_ref[pl.ds(off, 1)] = yring_ref[pl.ds(off, 1)] + YC[None]
-            yring_ref[pl.ds(start + j, 1)] = (
-                yring_ref[pl.ds(start + j, 1)] + acc[None]
+        def apply():
+            B = upper_ref[r, k]
+            Xc = x_ref[pl.ds(c * bm, bm), cs]
+            pltriton.atomic_add(
+                y_ref, (pl.ds(c * bm, bm), cs), _block_dot(B, Xr, trans=True)
             )
-        y_ref[...] = yring_ref[pl.ds(start, s)].astype(y_ref.dtype)
-        yring_ref[pl.ds(start, s)] = jnp.zeros(
-            (s,) + yring_ref.shape[1:], jnp.float32
-        )
+            return acc + _block_dot(B, Xc, trans=False)
+
+        return lax.cond(c > r, apply, lambda: acc)
+
+    acc = lax.fori_loop(0, upper_ref.shape[1], slot, acc)
+    pltriton.atomic_add(y_ref, (pl.ds(r * bm, bm), cs), acc)
 
 
-def _sym_ring_matmat_call(sym, x3: jax.Array, s: int, W: int, interpret: bool):
-    """pallas_call plumbing for :func:`_sym_spmm_ring_kernel`; ``x3`` is
-    the padded (nbc, p, bn) f32 slab stack."""
-    nbr, ku, bm, bn = sym.upper_data.shape
-    nstrips = nbr // s
-    koff = W // s - 1
-    p = x3.shape[1]
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nstrips + koff,),
-        in_specs=[
-            pl.BlockSpec(
-                (s, bm, bn),
-                lambda i, cols: (jnp.maximum(i - (W // s - 1), 0), 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (s, ku, bm, bn),
-                lambda i, cols: (jnp.maximum(i - (W // s - 1), 0), 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (s, p, bn),
-                lambda i, cols: (jnp.minimum(i, nbr // s - 1), 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (s, p, bm),
-            lambda i, cols: (jnp.maximum(i - (W // s - 1), 0), 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((W, p, bn), jnp.float32),
-            pltpu.VMEM((W, p, bm), jnp.float32),
-        ],
-    )
-    itemsize = sym.upper_data.dtype.itemsize
-    y = pl.pallas_call(
-        partial(_sym_spmm_ring_kernel, ku, s, W, nstrips),
-        out_shape=jax.ShapeDtypeStruct((nbr, p, bm), jnp.float32),
-        grid_spec=grid_spec,
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * (sym.diag_data.size + 2 * sym.upper_data.size) * p,
-            bytes_accessed=(sym.diag_data.size + sym.upper_data.size) * itemsize
-            + 2 * x3.size * 4
-            + nbr * p * bm * 4,
-            transcendentals=0,
-        ),
-    )(sym.upper_cols.reshape(-1), sym.diag_data, sym.upper_data, x3)
-    return y
-
-
-def _sym_spmv_kernel(ku: int, rows_per: int, cols_ref, diag_ref, upper_ref, x_ref, y_ref):
-    """Symmetric SpMV over diagonal + strictly-UPPER block storage: each
-    off-diagonal block B at (r, c>r) is read from HBM ONCE and applied
-    twice — y[r] += B·x[c] and y[c] += Bᵀ·x[r] — halving the dominant
-    HBM traffic for symmetric operators (the Lanczos matvec case).  The
-    dense einsum XLA path cannot do this; measured on v5e it lifts bf16
-    SpMV from ~356-374 to ~486-531 effective Gnnz/s (~1.4×).
-
-    The full y lives VMEM-resident as the accumulator (the TPU grid is
-    sequential on a core, so cross-row scatter accumulation is safe);
-    both products use the row-vector ``dot_general`` form, the transpose
-    application contracting dim 0 of B — no transpose is materialized."""
-    pid = pl.program_id(0)
-    r0 = pid * rows_per
-
-    @pl.when(pid == 0)
-    def _():
-        y_ref[...] = jnp.zeros_like(y_ref)
-
-    prec = _dot_mode(diag_ref.dtype)
-    for i in range(rows_per):
-        r = r0 + i
-        xr = x_ref[r, :][None, :]  # (1, bn)
-        D = diag_ref[i].astype(jnp.float32)
-        acc = _sdot(xr, D, ((1,), (1,)), prec)
-        for k in range(ku):
-            c = cols_ref[r * ku + k]
-            xb = x_ref[c, :][None, :]
-            B = upper_ref[i, k].astype(jnp.float32)
-            acc = acc + _sdot(xb, B, ((1,), (1,)), prec)
-            # transpose contribution y[c] += Bᵀ x[r]  (= x[r] · B)
-            yc = _sdot(xr, B, ((1,), (0,)), prec)
-            y_ref[pl.ds(c, 1), :] = y_ref[pl.ds(c, 1), :] + yc.astype(y_ref.dtype)
-        y_ref[pl.ds(r, 1), :] = y_ref[pl.ds(r, 1), :] + acc.astype(y_ref.dtype)
-
-
-@partial(jax.jit, static_argnames=("interpret", "rows_per"))
-def sym_bsr_matvec_pallas(
-    sym, x: jax.Array, interpret: bool = False, rows_per: int | None = None
-) -> jax.Array:
-    """y = A @ x for a symmetric BSR matrix stored as diagonal blocks +
-    strictly-upper BSR-ELL (:class:`eigenex_tpu.sparse.sym_bsr.SymBSRMatrix`).
-
-    ``rows_per``: block rows per grid program (default: the largest
-    divisor of ``nbr`` whose double-buffered block stream fits the
-    ~16 MB scoped-VMEM budget — measured sweep on v5e, 2048×3 128²
-    blocks bf16: R=4→406, 8→522, 32→550, **64→575** Gnnz/s; R≥128
-    exceeds scoped VMEM).  Falls back to the container's XLA path
-    off-TPU or for unsupported dtypes/shapes."""
-    nbr, ku, bm, bn = sym.upper_data.shape
-    if not interpret and jax.default_backend() != "tpu":
-        return sym._xla_matvec(x)
-    if sym.dtype not in (jnp.float32, jnp.bfloat16) or bm % 8 or bn % 128 or bm != bn:
-        return sym._xla_matvec(x)
-    # BANDED operators (known finite band_reach) take the STREAMING
-    # kernel: strip-windowed x, carried y scatter — no size cap, and
-    # measured FASTER than the resident kernel even where both fit
-    # (v5e, 2048×1 128² bf16 blocks: stream 611-702 vs resident 510-593
-    # effective Gnnz/s; at 16.8M rows stream 541 vs XLA-fallback 313).
-    # Unbanded operators use the RESIDENT kernel (full x and y panels in
-    # VMEM, cross-row scatter), which caps out ~1.7M rows, then XLA.
-    reach = getattr(sym, "band_reach", -1)
-    if rows_per is None and reach >= 0:
-        strip = _pick_sym_strip(nbr, ku, bm, bn, sym.upper_data.dtype.itemsize, reach)
-        if strip:
-            return _sym_stream_call(sym, x, strip, interpret)
-    resident = 8 * sym.shape[0]
-    R = _pick_sym_rows_per(
-        nbr, ku, bm, bn, sym.upper_data.dtype.itemsize, resident
-    ) if rows_per is None else rows_per
-    if R <= 0 or nbr % R:
-        strip = (
-            _pick_sym_strip(nbr, ku, bm, bn, sym.upper_data.dtype.itemsize, reach)
-            if reach >= 0
-            else 0
-        )
-        if strip:
-            return _sym_stream_call(sym, x, strip, interpret)
-        if reach >= 1 and bm == bn:
-            # band reach exceeds any VMEM strip AND the resident panels
-            # do not fit: the ring kernel covers this regime with
-            # ~reach-row ring buffers (the L=24 Heisenberg case)
-            s, Wr = _pick_ring_params(
-                nbr, ku, bm, bn, sym.upper_data.dtype.itemsize, reach
-            )
-            if s:
-                return _sym_ring_call(sym, x, s, Wr, interpret)
-        return sym._xla_matvec(x)
-    nbc = sym.shape[1] // bn
-    x2 = x.astype(jnp.float32).reshape(nbc, bn)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nbr // R,),
-        in_specs=[
-            pl.BlockSpec((R, bm, bn), lambda i, cols: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (R, ku, bm, bn), lambda i, cols: (i, 0, 0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # x2 resident
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),  # full y accumulator
-    )
-    vma = getattr(jax.typeof(sym.upper_data), "vma", None) or getattr(
-        jax.typeof(x2), "vma", None
-    )
-    out_struct = (
-        jax.ShapeDtypeStruct((nbr, bm), jnp.float32, vma=vma)
-        if vma
-        else jax.ShapeDtypeStruct((nbr, bm), jnp.float32)
-    )
-    itemsize = sym.upper_data.dtype.itemsize
-    y = pl.pallas_call(
-        partial(_sym_spmv_kernel, ku, R),
-        out_shape=out_struct,
-        grid_spec=grid_spec,
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * (sym.diag_data.size + 2 * sym.upper_data.size),
-            bytes_accessed=(sym.diag_data.size + sym.upper_data.size) * itemsize
-            + x2.size * 4
-            + nbr * bm * 4,
-            transcendentals=0,
-        ),
-    )(sym.upper_cols.reshape(-1), sym.diag_data, sym.upper_data, x2)
-    return y.reshape(sym.shape[0])
-
-
-def _pick_sym_spmm_strip(
-    nbr: int, ku: int, bm: int, bn: int, p: int, itemsize: int, reach: int
-) -> int:
-    """Strip pick for the STREAMING symmetric SpMM: block stream +
-    double-buffered X slab windows + Y tile + carry, all per strip."""
-    budget = 14 * 2**20
-    for s in (512, 256, 128, 64, 32, 16, 8):
-        if nbr % s or s < reach:
-            continue
-        stream = 2 * s * (1 + ku) * bm * bn * itemsize
-        xwin = 2 * 2 * s * p * bn * 4
-        ytile = 3 * s * p * bm * 4  # double-buffered out + carry
-        if stream + xwin + ytile <= budget:
-            return s
-    return 0
-
-
-def _sym_spmm_stream_kernel(
-    ku: int, strip: int, reach: int,
-    cols_ref, diag_ref, upper_ref, xc_ref, xn_ref, y_ref, carry_ref,
-):
-    """Streaming multi-RHS twin of :func:`_sym_spmv_stream_kernel`: X and
-    Y move as transposed ``(strip, p, bn)`` slabs (p sublanes, block
-    axis lanes) through strip windows, with the transpose-contribution
-    scatter carried between strips — the half-traffic symmetric SpMM at
-    ANY problem size (the resident panel kernel caps at n·p ≲ 1.7M)."""
-    pid = pl.program_id(0)
-
-    @pl.when(pid == 0)
-    def _():
-        carry_ref[...] = jnp.zeros_like(carry_ref)
-
-    y_ref[...] = carry_ref[...].astype(y_ref.dtype)
-    carry_ref[...] = jnp.zeros_like(carry_ref)
-    prec = _dot_mode(diag_ref.dtype)
-
-    for i in range(strip):
-        Xr = xc_ref[i]  # (p, bn) f32
-        D = diag_ref[i].astype(jnp.float32)
-        acc = _sdot(Xr, D, ((1,), (1,)), prec)  # (p, bm)
-        for k in range(ku):
-            c = cols_ref[(pid * strip + i) * ku + k]
-            off = c - pid * strip
-            B = upper_ref[i, k].astype(jnp.float32)
-            YC = _sdot(Xr, B, ((1,), (0,)), prec)  # (p, bn)
-            if i + reach < strip:
-                o1 = jnp.maximum(off, 0)
-                Xb = xc_ref[pl.ds(o1, 1)][0]
-                acc = acc + _sdot(Xb, B, ((1,), (1,)), prec)
-                y_ref[pl.ds(o1, 1)] = y_ref[pl.ds(o1, 1)] + YC[None].astype(y_ref.dtype)
-                continue
-            in_cur = off < strip
-            o1 = jnp.clip(off, 0, strip - 1)
-            o2 = jnp.clip(off - strip, 0, strip - 1)
-            Xb = jnp.where(in_cur, xc_ref[pl.ds(o1, 1)], xn_ref[pl.ds(o2, 1)])[0]
-            acc = acc + _sdot(Xb, B, ((1,), (1,)), prec)
-
-            @pl.when(in_cur)
-            def _(o1=o1, YC=YC):
-                y_ref[pl.ds(o1, 1)] = y_ref[pl.ds(o1, 1)] + YC[None].astype(y_ref.dtype)
-
-            @pl.when(jnp.logical_not(in_cur))
-            def _(o2=o2, YC=YC):
-                carry_ref[pl.ds(o2, 1)] = carry_ref[pl.ds(o2, 1)] + YC[None]
-
-        y_ref[pl.ds(i, 1)] = y_ref[pl.ds(i, 1)] + acc[None].astype(y_ref.dtype)
-
-
-def _sym_stream_matmat_call(sym, x3: jax.Array, strip: int, interpret: bool) -> jax.Array:
-    """pallas_call plumbing for :func:`_sym_spmm_stream_kernel`; ``x3``
-    is the padded (nbc, p, bn) f32 slab stack."""
-    nbr, ku, bm, bn = sym.upper_data.shape
-    reach = max(sym.band_reach, 0)
-    if reach > strip:
-        raise ValueError(
-            f"streaming sym SpMM needs strip >= band_reach ({strip} < {reach})"
-        )
-    p = x3.shape[1]
-    ngrid = nbr // strip
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(ngrid,),
-        in_specs=[
-            pl.BlockSpec(
-                (strip, bm, bn), lambda i, cols: (i, 0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (strip, ku, bm, bn), lambda i, cols: (i, 0, 0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (strip, p, bn), lambda i, cols: (i, 0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (strip, p, bn),
-                lambda i, cols: (jnp.minimum(i + 1, ngrid - 1), 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (strip, p, bm), lambda i, cols: (i, 0, 0), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[pltpu.VMEM((strip, p, bm), jnp.float32)],
-    )
-    itemsize = sym.upper_data.dtype.itemsize
-    y = pl.pallas_call(
-        partial(_sym_spmm_stream_kernel, ku, strip, reach),
-        out_shape=jax.ShapeDtypeStruct((nbr, p, bm), jnp.float32),
-        grid_spec=grid_spec,
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * (sym.diag_data.size + 2 * sym.upper_data.size) * p,
-            bytes_accessed=(sym.diag_data.size + sym.upper_data.size) * itemsize
-            + 2 * x3.size * 4
-            + nbr * p * bm * 4,
-            transcendentals=0,
-        ),
-    )(sym.upper_cols.reshape(-1), sym.diag_data, sym.upper_data, x3, x3)
-    return y
-
-
-def _sym_spmm_kernel(ku: int, rows_per: int, cols_ref, diag_ref, upper_ref, x_ref, y_ref):
-    """Multi-RHS generalization of :func:`_sym_spmv_kernel`: Y = A·X with
-    A in diag + strictly-upper block storage and X a panel of ``p`` RHS
-    columns.  X and Y live VMEM-resident in TRANSPOSED slab form
-    ``(n_blocks, p, bn)`` — p in the sublane dim, the block axis in the
-    lane dim — so both products are the row-vector ``dot_general`` of the
-    SpMV kernel widened from 1 row to p rows, and the p=8 panel needs no
-    lane padding (a ``(bn, p)`` layout would pad p→128 lanes, 16× VMEM).
-
-    Per upper block B at (r, c>r), read from HBM once:
-      Y[r] += X[c]·Bᵀ   (contract dim 1)     and
-      Y[c] += X[r]·B    (contract dim 0 of B — the transpose application)
-    — the same half-traffic trade as SpMV, and at p RHS columns the
-    matmat is still HBM-bound (measured round 2: full-storage XLA einsum
-    at p=8 runs ~90% of its 2-byte/nnz roofline), so halving block bytes
-    is worth ~2× where the resident panels fit."""
-    pid = pl.program_id(0)
-    r0 = pid * rows_per
-
-    @pl.when(pid == 0)
-    def _():
-        y_ref[...] = jnp.zeros_like(y_ref)
-
-    prec = _dot_mode(diag_ref.dtype)
-    for i in range(rows_per):
-        r = r0 + i
-        xr = x_ref[r]  # (p, bn) f32
-        D = diag_ref[i].astype(jnp.float32)
-        acc = _sdot(xr, D, ((1,), (1,)), prec)  # (p, bm)
-        for k in range(ku):
-            c = cols_ref[r * ku + k]
-            xb = x_ref[c]  # (p, bn)
-            B = upper_ref[i, k].astype(jnp.float32)
-            acc = acc + _sdot(xb, B, ((1,), (1,)), prec)
-            yc = _sdot(xr, B, ((1,), (0,)), prec)  # (p, bn)
-            y_ref[pl.ds(c, 1)] = y_ref[pl.ds(c, 1)] + yc[None]
-        y_ref[pl.ds(r, 1)] = y_ref[pl.ds(r, 1)] + acc[None]
-
-
-@partial(jax.jit, static_argnames=("interpret", "rows_per"))
-def sym_bsr_matmat_pallas(
-    sym, X: jax.Array, interpret: bool = False, rows_per: int | None = None
-) -> jax.Array:
-    """Y = A @ X for symmetric (diag + strictly-upper) BSR storage with a
-    dense multi-column RHS — the block-Lanczos / subspace-iteration feed.
-
-    Keeps BOTH panels (X and the Y accumulator, f32) VMEM-resident, so
-    eligibility shrinks with p: roughly ``n·p ≤ 1.7M`` elements on v5e
-    (p=8 ⇒ n ≲ 218k single-chip; beyond that the row-partitioned mesh
-    path keeps each shard under the cap, or this falls back to the
-    container's XLA scatter-add path).  p is padded up to a multiple of 8
-    (f32 sublane tile) and the pad columns sliced off the result."""
-    nbr, ku, bm, bn = sym.upper_data.shape
-    if not interpret and jax.default_backend() != "tpu":
-        return sym._xla_matmat(X)
-    if sym.dtype not in (jnp.float32, jnp.bfloat16) or bm % 8 or bn % 128 or bm != bn:
-        return sym._xla_matmat(X)
-    p_in = X.shape[1]
-    p = max(8, -(-p_in // 8) * 8)
-    nbc = sym.shape[1] // bn
-    resident = 2 * 4 * nbc * p * bn  # f32 X panel + f32 Y accumulator
-    R = (
-        _pick_sym_rows_per(nbr, ku, bm, bn, sym.upper_data.dtype.itemsize, resident)
-        if rows_per is None
-        else rows_per
-    )
-    x2 = X.astype(jnp.float32)
+@partial(jax.jit, static_argnames=("interpret",))
+def sym_bsr_matmat_pallas(sym, X: jax.Array, interpret: bool = False) -> jax.Array:
+    """Y = A @ X (f32) for a :class:`SymBSRMatrix` whose storage
+    :func:`kernel_supports` and a dense (n, p) X.  p is padded to a power
+    of two of at least 16 (Triton block shapes, tensor-core minimum) and
+    the pad columns sliced off."""
+    nbr, ku, bm, _ = sym.upper_data.shape
+    n, p_in = X.shape
+    p = max(16, 1 << (p_in - 1).bit_length())
+    X = X.astype(jnp.float32)
     if p != p_in:
-        x2 = jnp.pad(x2, ((0, 0), (0, p - p_in)))
-    # (n, p) -> (nbc, p, bn) transposed slabs: p sublanes, block axis lanes
-    x3 = x2.reshape(nbc, bn, p).transpose(0, 2, 1)
-    if R <= 0 or nbr % R:
-        # resident panels don't fit: STREAMING SpMM for banded operators
-        # (strip-windowed X slabs, carried Y scatter — no size cap)
-        reach = getattr(sym, "band_reach", -1)
-        strip = (
-            _pick_sym_spmm_strip(
-                nbr, ku, bm, bn, p, sym.upper_data.dtype.itemsize, reach
-            )
-            if reach >= 0
-            else 0
-        )
-        if strip:
-            y = _sym_stream_matmat_call(sym, x3, strip, interpret)
-            out = y.transpose(0, 2, 1).reshape(sym.shape[0], p)
-            return out[:, :p_in] if p != p_in else out
-        if reach >= 1 and bm == bn:
-            # far reach: the ring SpMM (slab rings, VMEM independent of n)
-            s, Wr = _pick_ring_params_mm(
-                nbr, ku, bm, bn, p, sym.upper_data.dtype.itemsize, reach
-            )
-            if s:
-                y = _sym_ring_matmat_call(sym, x3, s, Wr, interpret)
-                out = y.transpose(0, 2, 1).reshape(sym.shape[0], p)
-                return out[:, :p_in] if p != p_in else out
-        return sym._xla_matmat(X)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nbr // R,),
-        in_specs=[
-            pl.BlockSpec((R, bm, bn), lambda i, cols: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (R, ku, bm, bn), lambda i, cols: (i, 0, 0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # x3 resident
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),  # full Y accumulator
-    )
-    vma = getattr(jax.typeof(sym.upper_data), "vma", None) or getattr(
-        jax.typeof(x3), "vma", None
-    )
-    out_struct = (
-        jax.ShapeDtypeStruct((nbr, p, bm), jnp.float32, vma=vma)
-        if vma
-        else jax.ShapeDtypeStruct((nbr, p, bm), jnp.float32)
-    )
+        X = jnp.pad(X, ((0, 0), (0, p - p_in)))
     itemsize = sym.upper_data.dtype.itemsize
-    y = pl.pallas_call(
-        partial(_sym_spmm_kernel, ku, R),
-        out_shape=out_struct,
-        grid_spec=grid_spec,
+    pw = min(p, _MAX_COLS)
+    groups = p // pw
+    Y = pl.pallas_call(
+        partial(_matmat_kernel, pw),
+        out_shape=_out_struct((n, p), sym.upper_data, X),
+        grid=(nbr, groups),
+        input_output_aliases={4: 0},
         interpret=interpret,
+        compiler_params=_MATMAT_PARAMS,
+        name="sym_bsr_spmm",
         cost_estimate=pl.CostEstimate(
             flops=2 * (sym.diag_data.size + 2 * sym.upper_data.size) * p,
-            bytes_accessed=(sym.diag_data.size + sym.upper_data.size) * itemsize
-            + x3.size * 4
-            + nbr * p * bm * 4,
+            bytes_accessed=groups * (sym.diag_data.size + sym.upper_data.size) * itemsize
+            + 4 * p * (n * (ku + 1) + 2 * n),
             transcendentals=0,
         ),
-    )(sym.upper_cols.reshape(-1), sym.diag_data, sym.upper_data, x3)
-    out = y.transpose(0, 2, 1).reshape(sym.shape[0], p)
-    return out[:, :p_in] if p != p_in else out
-
-
-def _spmm_kernel(kmax: int, rows_per: int, cols_ref, data_ref, x_ref, y_ref):
-    """``rows_per`` block rows, dense RHS: Y[r] = Σ_k data[r, k] @ X[cols[r, k]].
-
-    X and Y use the TRANSPOSED slab layout ``(n_blocks, p, bn)`` — p in
-    the sublane dim, the block axis in the lane dim — so each product is
-    the row-vector ``dot_general`` of :func:`_spmv_kernel` widened to p
-    rows and the p=8 panel needs no lane padding (the original
-    ``(bn, p)`` layout padded p→128 lanes: 16× VMEM and a 48 MB scoped-
-    VMEM overflow at n=196k).  Unlike the symmetric kernel no output
-    scatter exists, so Y streams per program; only X is resident."""
-    r0 = pl.program_id(0) * rows_per
-    prec = _dot_mode(data_ref.dtype)
-    for i in range(rows_per):
-        acc = jnp.zeros(y_ref.shape[-2:], jnp.float32)  # (p, bm)
-        for k in range(kmax):
-            c = cols_ref[(r0 + i) * kmax + k]
-            xb = x_ref[c]  # (p, bn)
-            blk = data_ref[i, k].astype(jnp.float32)  # (bm, bn)
-            acc = acc + _sdot(xb, blk, ((1,), (1,)), prec)
-        y_ref[i] = acc.astype(y_ref.dtype)
-
-
-@partial(jax.jit, static_argnames=("interpret", "rows_per"))
-def bsr_matmat_pallas(
-    bsr, X: jax.Array, interpret: bool = False, rows_per: int | None = None
-) -> jax.Array:
-    """Y = A @ X (dense multi-vector RHS) via Pallas.
-
-    Returns the ACCUMULATION dtype (f32 for bf16 storage) like every
-    other matvec/matmat path, so solver chains keep a stable carry type.
-    Falls back to the XLA einsum path when the resident X panel exceeds
-    the scoped-VMEM budget (n·p ≳ 3.4M f32 elements)."""
-    nbr, kmax, bm, bn = bsr.data.shape
-    out_dtype = bsr._acc_dtype
-    if not interpret and jax.default_backend() != "tpu":
-        return bsr.matmat(X)
-    if bsr.dtype not in (jnp.float32, jnp.bfloat16) or bm % 8 or bn % 128:
-        return bsr.matmat(X)
-    nbc = bsr.n_block_cols
-    p_in = X.shape[1]
-    p = max(8, -(-p_in // 8) * 8)
-    resident = 4 * nbc * p * bn  # f32 X panel (Y streams per program)
-    if rows_per is None:
-        itemsize = bsr.data.dtype.itemsize
-        budget = 14 * 2**20 - resident
-        R = 0
-        for r in (64, 32, 16, 8, 4, 2, 1):
-            # double-buffered data stream + the (R, p, bm) output tile
-            if nbr % r == 0 and 2 * r * (kmax * bm * bn * itemsize + p * bm * 4) <= budget:
-                R = r
-                break
-        if R == 0:
-            return bsr.matmat(X)
-    else:
-        R = rows_per
-    x2 = X.astype(jnp.float32)
-    if p != p_in:
-        x2 = jnp.pad(x2, ((0, 0), (0, p - p_in)))
-    x3 = x2.reshape(nbc, bn, p).transpose(0, 2, 1)  # (nbc, p, bn) slabs
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nbr // R,),
-        in_specs=[
-            pl.BlockSpec(
-                (R, kmax, bm, bn),
-                lambda i, cols: (i, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # x3 resident
-        ],
-        out_specs=pl.BlockSpec(
-            (R, p, bm), lambda i, cols: (i, 0, 0), memory_space=pltpu.VMEM
-        ),
-    )
-    y = pl.pallas_call(
-        partial(_spmm_kernel, kmax, R),
-        out_shape=jax.ShapeDtypeStruct((nbr, p, bm), out_dtype),
-        grid_spec=grid_spec,
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nbr * kmax * bm * bn * p,
-            bytes_accessed=bsr.data.size * bsr.data.dtype.itemsize
-            + x3.size * x3.dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(bsr.block_cols.reshape(-1), bsr.data, x3)
-    out = y.transpose(0, 2, 1).reshape(bsr.shape[0], p)
-    return out[:, :p_in] if p != p_in else out
+    )(sym.upper_cols, sym.diag_data, sym.upper_data, X, jnp.zeros((n, p), jnp.float32))
+    return Y[:, :p_in] if p != p_in else Y

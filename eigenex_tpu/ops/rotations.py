@@ -1,6 +1,6 @@
 """Sparse-triplet operators and Givens rotations applied to matrices.
 
-TPU-native re-design of the reference's triplet-application helpers:
+JAX-native re-design of the reference's triplet-application helpers:
 ``operate_triplets`` (apply a triplet list as a matrix from the left or
 right, util.hpp:516-566) and ``rotate_from_left`` /``rotate_from_right``
 (Givens rotations expressed as triplet updates, util.hpp:568-626 —

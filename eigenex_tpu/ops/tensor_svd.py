@@ -1,6 +1,6 @@
 """Tensor SVD with rank/threshold truncation.
 
-TPU-native re-design of include/cmpt/eigen_ex/tensor_svd.hpp:
+JAX-native re-design of include/cmpt/eigen_ex/tensor_svd.hpp:
 ``TensorSVD<TensorT, Urow, Vrow>`` (:172) — SVD of a rank-N tensor split
 as (first ``left_axes`` axes) × (remaining axes):
 

@@ -1,6 +1,6 @@
 """Tensor shape/transform utilities.
 
-TPU-native re-design of include/cmpt/eigen_ex/tensor_util.hpp:
+JAX-native re-design of include/cmpt/eigen_ex/tensor_util.hpp:
 ``zerowiselyResized`` (slice + zero-pad, :193-256),
 ``contractVectorAsDiagonal`` (:258-294) and
 ``transformTensorWithMatrix`` (:296-340).  ``TensorTraits`` (:37-176) is

@@ -5,7 +5,7 @@ implements BASELINE.json's north star — the operator's block rows are
 sharded over a 1-D device mesh, vectors and the Krylov basis shard over
 the same axis, Gram-Schmidt inner products complete with ``lax.psum``,
 and each matvec reconstitutes the needed x segments with collectives
-lowered by XLA onto ICI.
+lowered by XLA onto the device interconnect.
 
 Four matvec strategies:
 
@@ -34,9 +34,10 @@ Four matvec strategies:
   single-chip kernel win carried into weak scaling; no shard ever
   stores the global lower triangle).
 
-The local SpMV inside every mode can run through the Pallas BSR kernel
-(``use_pallas=True``; "interpret" for CPU-mesh tests) instead of the
-XLA gather+einsum path.
+The shard-local symmetric SpMV of the sym_halo mode can run through the
+half-traffic GPU kernel (``use_pallas=True``; "interpret" for CPU-mesh
+tests) instead of the XLA scatter-add path.  The other modes read each
+block once already and run on XLA.
 
 The distributed Lanczos reuses the *identical* step body as the
 single-device solver (``_lanczos_chunk_body`` with ``axis_name`` set) —
@@ -213,41 +214,37 @@ def _acc_dtype_of(dtype):
     return jnp.float32 if dtype in (jnp.bfloat16, jnp.float16) else dtype
 
 
-def _local_ell_spmv(data, cols, x, use_pallas):
-    """Shard-local BSR-ELL SpMV: XLA gather+einsum or the Pallas kernel."""
+def _local_ell_spmv(data, cols, x):
+    """Shard-local BSR-ELL SpMV: XLA gather+einsum."""
     bn = data.shape[3]
-    if use_pallas:
-        from ..ops.pallas_spmv import bsr_matvec_pallas
-
-        bsr_local = BSRMatrix(data, cols, (data.shape[0] * data.shape[2], x.shape[0]))
-        return bsr_matvec_pallas(bsr_local, x, interpret=use_pallas == "interpret")
     xb = x.reshape(-1, bn)[cols]
     acc = _acc_dtype_of(data.dtype)
     # x stays at the ACCUMULATION dtype: casting to bf16 storage dtype
     # injects ~2e-3 relative noise per matvec (round-4 finding; the
     # mixed bf16 x f32 einsum promotes in-registers)
     y = jnp.einsum(
-        "rkij,rkj->ri", data, xb.astype(acc), preferred_element_type=acc
+        "rkij,rkj->ri", data, xb.astype(acc), preferred_element_type=acc,
+        precision=lax.Precision.HIGHEST,
     )
     return y.reshape(-1).astype(acc)
 
 
-def _local_allgather_matvec(params, x_local, *, axis_name, bn, use_pallas=False):
+def _local_allgather_matvec(params, x_local, *, axis_name, bn):
     """Local-shard matvec: gather all x shards, apply the local block
     rows.  Runs inside shard_map."""
     data, cols = params
     x = lax.all_gather(x_local, axis_name, tiled=True)  # (n,)
-    return _local_ell_spmv(data, cols, x, use_pallas)
+    return _local_ell_spmv(data, cols, x)
 
 
-def _local_colsplit_matvec(params, x_local, *, axis_name, bn, use_pallas=False):
+def _local_colsplit_matvec(params, x_local, *, axis_name, bn):
     """Column-panel matvec: the local panel consumes only the OWN x shard
     (its block-column ids are panel-local), produces a full-length
     partial y, and ``lax.psum_scatter`` both sums the partials across the
     mesh and leaves each device its own y shard — all_gather's
     reduce_scatter dual.  Runs inside shard_map."""
     data, cols = params
-    y_partial = _local_ell_spmv(data, cols, x_local, use_pallas)
+    y_partial = _local_ell_spmv(data, cols, x_local)
     return lax.psum_scatter(y_partial, axis_name, scatter_dimension=0, tiled=True)
 
 
@@ -256,14 +253,14 @@ _DIST_CHUNK_CACHE: dict = {}
 
 
 def _build_local_operator(
-    mode, op_arrays, axis_name, bn, n_total, dtype, use_pallas=False, sym_reach=-1
+    mode, op_arrays, axis_name, bn, n_total, dtype, use_pallas=False
 ):
     """Local-shard matvec operator from the sharded BSR arrays."""
     if mode == "allgather":
         data, cols = op_arrays
         nbr_local, _, bm, _ = data.shape
         return LinearOperator(
-            partial(_local_allgather_matvec, axis_name=axis_name, bn=bn, use_pallas=use_pallas),
+            partial(_local_allgather_matvec, axis_name=axis_name, bn=bn),
             (data, cols),
             (nbr_local * bm, n_total),
             dtype,
@@ -272,7 +269,7 @@ def _build_local_operator(
         data, cols = op_arrays
         nbr_full, _, bm, _ = data.shape  # ALL block rows (panel has full height)
         return LinearOperator(
-            partial(_local_colsplit_matvec, axis_name=axis_name, bn=bn, use_pallas=use_pallas),
+            partial(_local_colsplit_matvec, axis_name=axis_name, bn=bn),
             (data, cols),
             (n_total, n_total),
             dtype,
@@ -281,10 +278,7 @@ def _build_local_operator(
         diag, ind, inc, rd, rc = op_arrays
         nbr_local, bm, _ = diag.shape
         return LinearOperator(
-            partial(
-                _sym_halo_mv, axis_name=axis_name, bn=bn, use_pallas=use_pallas,
-                sym_reach=sym_reach,
-            ),
+            partial(_sym_halo_mv, axis_name=axis_name, bn=bn, use_pallas=use_pallas),
             (diag, ind, inc, rd, rc),
             (nbr_local * bm, n_total),
             dtype,
@@ -301,11 +295,11 @@ def _build_local_operator(
 
 def _get_dist_chunk(
     mesh, axis_name, num_steps, reorth, has_deflate, bn, mode, si_cg_iters=None,
-    use_pallas=False, sym_reach=-1,
+    use_pallas=False,
 ):
     key = (
         mesh, axis_name, num_steps, reorth, has_deflate, bn, mode, si_cg_iters,
-        use_pallas, sym_reach,
+        use_pallas,
     )
     fn = _DIST_CHUNK_CACHE.get(key)
     if fn is not None:
@@ -322,7 +316,7 @@ def _get_dist_chunk(
                 V, alpha, beta, k, breakdown, failed, shift, bd, deflate, sigma, cg_tol,
             ) = args[n_op_args:]
         op_local = _build_local_operator(
-            mode, op_arrays, axis_name, bn, V.shape[1], V.dtype, use_pallas, sym_reach
+            mode, op_arrays, axis_name, bn, V.shape[1], V.dtype, use_pallas
         )
         if si_cg_iters is not None:
             # shift-invert: each Lanczos matvec is a mesh-parallel CG solve
@@ -415,7 +409,7 @@ def _get_dist_chunk(
         mesh=mesh,
         in_specs=(P(axis_name),) * n_op_args + state_specs,
         out_specs=(P(None, axis_name), P(), P(), P(), P(), P()),
-        # the Pallas interpret path trips JAX's vma checker on in-kernel
+        # the Pallas kernel trips JAX's vma checker on in-kernel
         # dynamic_slice (jax-ml/jax suggested workaround)
         check_vma=not use_pallas,
     )
@@ -464,8 +458,8 @@ def distributed_lanczos_steps(
     modes require the operator's column blocks to reach only the
     adjacent shards (checked at split time).
 
-    ``use_pallas``: run the shard-local SpMV through the Pallas BSR
-    kernel ("interpret" for CPU-mesh tests).
+    ``use_pallas``: run the sym_halo shard-local SpMV through the GPU
+    kernel ("interpret" for CPU-mesh tests); the other modes run on XLA.
     """
     nd = mesh.shape[axis_name]
     if bsr.n_block_rows % nd:
@@ -501,14 +495,9 @@ def distributed_lanczos_steps(
         op_arrays = (pd, pc)
     else:
         op_arrays = (bsr.data, bsr.block_cols)
-    sym_reach = (
-        sym_inpanel_reach(op_arrays[1], op_arrays[2], op_arrays[0].shape[0] // nd)
-        if matvec_mode == "sym_halo"
-        else -1
-    )
     fn = _get_dist_chunk(
         mesh, axis_name, int(num_steps), int(reorthogonalize_interval), has_deflate,
-        bsr.block_shape[1], matvec_mode, si_iters, use_pallas, sym_reach,
+        bsr.block_shape[1], matvec_mode, si_iters, use_pallas,
     )
     extra = ()
     if shift_invert_sigma is not None:
@@ -541,10 +530,9 @@ class _DistributedBSRSolverMixin:
         self.mesh = mesh
         self.axis_name = axis_name
         self.matvec_mode = matvec_mode
-        self.use_pallas = use_pallas
         self._dist_orig_n = orig_n
         nd = mesh.shape[axis_name]
-        from ..sparse.sym_bsr import SymBSRMatrix, sym_bsr_from_bsr
+        from ..sparse.sym_bsr import SymBSRMatrix, kernel_route, sym_bsr_from_bsr
 
         if isinstance(bsr, SymBSRMatrix) and matvec_mode != "sym_halo":
             raise EigenexError(
@@ -556,10 +544,19 @@ class _DistributedBSRSolverMixin:
         elif matvec_mode == "sym_halo":
             sym = bsr if isinstance(bsr, SymBSRMatrix) else sym_bsr_from_bsr(bsr)
             self._halo_parts = split_sym_bsr_halo(sym, nd)
+            if use_pallas is None:
+                # the backend rule, applied while the container is concrete
+                use_pallas = kernel_route(sym)
         elif matvec_mode == "colsplit":
             self._halo_parts = split_bsr_colpanels(bsr, nd)
         else:
             self._halo_parts = None
+        self.use_pallas = use_pallas or False
+        if self._halo_parts is not None:
+            # each device keeps its own row shard for the whole solve;
+            # left on one device, the parts would be resharded per chunk
+            rows = jax.sharding.NamedSharding(mesh, P(axis_name))
+            self._halo_parts = jax.device_put(self._halo_parts, rows)
         if bsr.shape[0] != orig_n:
             self._initial_vector = _padding_safe_v0(
                 orig_n, bsr.shape[0], bsr.dtype, self.options.seed
@@ -616,7 +613,7 @@ class DistributedLanczosEigenSolver(_DistributedBSRSolverMixin, LanczosEigenSolv
         mesh = mesh if mesh is not None else make_mesh(axis_name=axis_name)
         orig_n = bsr.shape[0]
         bsr = pad_bsr_for_mesh(bsr, mesh.shape[axis_name])
-        super().__init__(bsr.as_linear_operator(use_pallas=False), options)
+        super().__init__(bsr.as_linear_operator(), options)
         self._init_distributed(bsr, mesh, axis_name, matvec_mode, orig_n, use_pallas)
 
     def _run_chunk(self, op, state, num_steps, breakdown_threshold):
@@ -711,9 +708,9 @@ _DIST_ARNOLDI_CACHE: dict = {}
 
 
 def _get_dist_arnoldi_chunk(
-    mesh, axis_name, num_steps, bn, mode, use_pallas=False, sym_reach=-1
+    mesh, axis_name, num_steps, bn, mode, use_pallas=False
 ):
-    key = (mesh, axis_name, num_steps, bn, mode, use_pallas, sym_reach)
+    key = (mesh, axis_name, num_steps, bn, mode, use_pallas)
     fn = _DIST_ARNOLDI_CACHE.get(key)
     if fn is not None:
         return fn
@@ -723,7 +720,7 @@ def _get_dist_arnoldi_chunk(
         op_arrays = args[:n_op_args]
         V, H, k, breakdown, residue, failed, shift, bd = args[n_op_args:]
         op_local = _build_local_operator(
-            mode, op_arrays, axis_name, bn, V.shape[1], V.dtype, use_pallas, sym_reach
+            mode, op_arrays, axis_name, bn, V.shape[1], V.dtype, use_pallas
         )
         state = ArnoldiState(
             V=V, H=H, k=k, breakdown=breakdown, residue=residue, failed=failed
@@ -802,14 +799,8 @@ def distributed_arnoldi_steps(
         op_arrays = (pd, pc)
     else:
         op_arrays = (bsr.data, bsr.block_cols)
-    sym_reach = (
-        sym_inpanel_reach(op_arrays[1], op_arrays[2], op_arrays[0].shape[0] // nd)
-        if matvec_mode == "sym_halo"
-        else -1
-    )
     fn = _get_dist_arnoldi_chunk(
         mesh, axis_name, int(num_steps), bsr.block_shape[1], matvec_mode, use_pallas,
-        sym_reach,
     )
     V, H, k, brk, res, failed = fn(
         *op_arrays,
@@ -849,7 +840,7 @@ class DistributedThickRestartLanczosEigenSolver(
         mesh = mesh if mesh is not None else make_mesh(axis_name=axis_name)
         orig_n = bsr.shape[0]
         bsr = pad_bsr_for_mesh(bsr, mesh.shape[axis_name])
-        super().__init__(bsr.as_linear_operator(use_pallas=False), options)
+        super().__init__(bsr.as_linear_operator(), options)
         self._init_distributed(bsr, mesh, axis_name, matvec_mode, orig_n, use_pallas)
 
 
@@ -875,7 +866,7 @@ def halo_matvec(
     a diagonal part (columns within the own shard, *local* block-column
     ids) and left/right parts (columns in the neighbor shards, block-col
     ids local to that neighbor).  Per matvec, two ``lax.ppermute`` ring
-    shifts move whole x shards one step each way; XLA overlaps these ICI
+    shifts move whole x shards one step each way; XLA overlaps these
     transfers with the local diagonal SpMV that needs no remote data.
     Bandwidth: 2·n_local per device (vs n for all-gather).
     """
@@ -891,17 +882,16 @@ def halo_matvec(
         acc = _acc_dtype_of(data.dtype)
         return (
             jnp.einsum(
-                "rkij,rkj->ri", data, xb.astype(acc), preferred_element_type=acc
+                "rkij,rkj->ri", data, xb.astype(acc), preferred_element_type=acc,
+                precision=lax.Precision.HIGHEST,
             )
             .reshape(-1)
             .astype(acc)
         )
 
     # the named scope tags the diag compute in HLO metadata so
-    # tests/test_hlo_overlap.py can assert the compiled schedule overlaps
-    # it with the collective-permute-start/-done pair (verified on the
-    # v5e 2x4 AOT compile: both starts issue before this fusion, both
-    # dones land after it)
+    # tests/test_hlo_overlap.py can find it in the compiled graph next to
+    # the collective-permute pair
     with jax.named_scope("halo_diag_spmv"):
         y = ell(diag_data, diag_cols, x_local)
     y = y + ell(left_data, left_cols, x_from_left)
@@ -965,32 +955,15 @@ def split_bsr_halo(bsr: BSRMatrix, n_shards: int):
     return out["diag"], out["left"], out["right"]
 
 
-def sym_inpanel_reach(in_data, in_cols, rows_per: int) -> int:
-    """Max in-panel block band reach (local col − local row) over the
-    stored in-panel upper blocks — computed host-side on the CONCRETE
-    split arrays so it can ride as STATIC metadata into the shard-local
-    :class:`SymBSRMatrix`.  A known reach lets the shard-local Pallas
-    path use the STREAMING kernel (no VMEM size cap) — at the north-star
-    scale a pod shard holds 1.5–12M rows, past the resident kernel's
-    ~1.7M-row limit."""
-    nbr, ku = in_cols.shape
-    if nbr == 0 or ku == 0:
-        return 0
-    lr = jnp.arange(nbr, dtype=in_cols.dtype) % rows_per
-    nz = jnp.any(in_data.reshape(nbr, ku, -1) != 0, axis=2)
-    d = jnp.where(nz, in_cols - lr[:, None], 0)
-    return max(int(jnp.max(d)), 0)
-
-
-def _local_sym_matvec(diag, ud, uc, x, use_pallas, sym_reach: int = -1):
+def _local_sym_matvec(diag, ud, uc, x, use_pallas):
     """Shard-local SYMMETRIC matvec (diag + in-panel upper applied on
-    both triangles) — XLA scatter-add path or the half-traffic Pallas
-    kernel (streaming variant when ``sym_reach`` is known).  Runs inside
+    both triangles) — XLA scatter-add path or, with ``use_pallas``, the
+    half-traffic GPU kernel ("interpret" in tests).  Runs inside
     shard_map."""
     from ..sparse.sym_bsr import SymBSRMatrix
 
     n_local = diag.shape[0] * diag.shape[1]
-    sym_local = SymBSRMatrix(diag, ud, uc, (n_local, n_local), sym_reach)
+    sym_local = SymBSRMatrix(diag, ud, uc, (n_local, n_local))
     if use_pallas:
         from ..ops.pallas_spmv import sym_bsr_matvec_pallas
 
@@ -1002,7 +975,7 @@ def _local_sym_matvec(diag, ud, uc, x, use_pallas, sym_reach: int = -1):
 
 def sym_halo_matvec(
     diag, ud, uc, rd, rc, x_local, *, axis_name: str = ROWS, bn: int,
-    use_pallas=False, sym_reach: int = -1,
+    use_pallas=False,
 ):
     """Symmetric halo-exchange SpMV: the half-HBM-traffic layout of
     :class:`~eigenex_tpu.sparse.sym_bsr.SymBSRMatrix` carried into the
@@ -1020,8 +993,8 @@ def sym_halo_matvec(
       segment) and added by the owner.
 
     Wire volume per matvec is 2·n_local per device — identical to the
-    full-storage halo mode — but the dominant HBM block traffic is
-    halved, which on v5e lifts the local SpMV ~1.4x (BASELINE.md).  The
+    full-storage halo mode — and with ``use_pallas`` the local block
+    traffic is halved (the XLA local path reads each block twice).  The
     lower triangle of the global matrix is never stored anywhere on the
     mesh.  Runs inside shard_map.
     """
@@ -1032,21 +1005,21 @@ def sym_halo_matvec(
     x_from_right = lax.ppermute(x_local, axis_name, left_perm)
     acc = _acc_dtype_of(diag.dtype)
 
-    # in-panel symmetric part: needs no remote data — XLA overlaps the
-    # ppermutes above/below with this compute (schedule-verified by
-    # tests/test_hlo_overlap.py on the v5e 2x4 AOT compile)
+    # in-panel symmetric part: needs no remote data, so XLA may overlap
+    # the ppermutes above/below with this compute
     with jax.named_scope("sym_halo_local_spmv"):
-        y = _local_sym_matvec(diag, ud, uc, x_local, use_pallas, sym_reach)
+        y = _local_sym_matvec(diag, ud, uc, x_local, use_pallas)
 
     # boundary: y[r] += B x_next[c]
-    y = y + _local_ell_spmv(rd, rc, x_from_right, False)
+    y = y + _local_ell_spmv(rd, rc, x_from_right)
 
     # reverse contribution y_next[c] += Bᴴ x[r]; padding slots (col 0,
     # zero blocks) scatter zeros — harmless
     xb = x_local.reshape(-1, bn)
     rdh = jnp.conj(rd) if jnp.issubdtype(rd.dtype, jnp.complexfloating) else rd
     contrib = jnp.einsum(
-        "rkij,ri->rkj", rdh, xb.astype(acc), preferred_element_type=acc
+        "rkij,ri->rkj", rdh, xb.astype(acc), preferred_element_type=acc,
+        precision=lax.Precision.HIGHEST,
     )
     nbc_next = x_from_right.shape[0] // bn
     yc = jnp.zeros((nbc_next, bn), acc).at[rc].add(contrib.astype(acc)).reshape(-1)
@@ -1054,10 +1027,8 @@ def sym_halo_matvec(
     return y
 
 
-def _sym_halo_mv(p, x, *, axis_name, bn, use_pallas=False, sym_reach=-1):
-    return sym_halo_matvec(
-        *p, x, axis_name=axis_name, bn=bn, use_pallas=use_pallas, sym_reach=sym_reach
-    )
+def _sym_halo_mv(p, x, *, axis_name, bn, use_pallas=False):
+    return sym_halo_matvec(*p, x, axis_name=axis_name, bn=bn, use_pallas=use_pallas)
 
 
 def split_sym_bsr_halo(sym, n_shards: int):
@@ -1152,7 +1123,7 @@ def split_bsr_colpanels(bsr: BSRMatrix, n_shards: int):
 # Distributed SpMM (matmat) twins of the four matvec modes + the
 # global-array mesh operator that powers mesh-aware Chebyshev/KPM/LOBPCG
 # ---------------------------------------------------------------------------
-def _local_allgather_matmat(params, X_local, *, axis_name, bn, use_pallas=False):
+def _local_allgather_matmat(params, X_local, *, axis_name, bn):
     """Multi-RHS twin of :func:`_local_allgather_matvec`: gather all X
     row shards, apply the local block rows.  Runs inside shard_map."""
     data, cols = params
@@ -1160,7 +1131,7 @@ def _local_allgather_matmat(params, X_local, *, axis_name, bn, use_pallas=False)
     return _local_ell_spmm(data, cols, X)
 
 
-def _local_colsplit_matmat(params, X_local, *, axis_name, bn, use_pallas=False):
+def _local_colsplit_matmat(params, X_local, *, axis_name, bn):
     """Column-panel SpMM + ``psum_scatter`` along the row axis — the
     reduce_scatter dual, multi-RHS.  Runs inside shard_map."""
     data, cols = params
@@ -1188,11 +1159,11 @@ def halo_matmat(
     return Y
 
 
-def _local_sym_matmat(diag, ud, uc, X, use_pallas, sym_reach: int = -1):
+def _local_sym_matmat(diag, ud, uc, X, use_pallas):
     from ..sparse.sym_bsr import SymBSRMatrix
 
     n_local = diag.shape[0] * diag.shape[1]
-    sym_local = SymBSRMatrix(diag, ud, uc, (n_local, n_local), sym_reach)
+    sym_local = SymBSRMatrix(diag, ud, uc, (n_local, n_local))
     if use_pallas:
         from ..ops.pallas_spmv import sym_bsr_matmat_pallas
 
@@ -1202,7 +1173,7 @@ def _local_sym_matmat(diag, ud, uc, X, use_pallas, sym_reach: int = -1):
 
 def sym_halo_matmat(
     diag, ud, uc, rd, rc, X_local, *, axis_name: str = ROWS, bn: int,
-    use_pallas=False, sym_reach: int = -1,
+    use_pallas=False,
 ):
     """Multi-RHS twin of :func:`sym_halo_matvec`: forward X-panel halo +
     reverse halo of the BᴴX partial-Y panel — half-HBM-traffic symmetric
@@ -1216,7 +1187,7 @@ def sym_halo_matmat(
     p = X_local.shape[1]
 
     with jax.named_scope("sym_halo_local_spmm"):
-        Y = _local_sym_matmat(diag, ud, uc, X_local, use_pallas, sym_reach)
+        Y = _local_sym_matmat(diag, ud, uc, X_local, use_pallas)
 
     # boundary: Y[r] += B X_next[c]
     Y = Y + _local_ell_spmm(rd, rc, X_from_right)
@@ -1225,7 +1196,8 @@ def sym_halo_matmat(
     Xb = X_local.reshape(-1, bn, p)
     rdh = jnp.conj(rd) if jnp.issubdtype(rd.dtype, jnp.complexfloating) else rd
     contrib = jnp.einsum(
-        "rkij,rip->rkjp", rdh, Xb.astype(acc), preferred_element_type=acc
+        "rkij,rip->rkjp", rdh, Xb.astype(acc), preferred_element_type=acc,
+        precision=lax.Precision.HIGHEST,
     )  # (nbr_local, k, bn, p)
     nbc_next = X_from_right.shape[0] // bn
     YC = (
@@ -1282,7 +1254,7 @@ def split_bsr_grid(bsr: BSRMatrix, n_row_shards: int, n_col_shards: int):
     return jnp.asarray(out_d), jnp.asarray(out_c)
 
 
-def _local_grid2d_matvec(params, x_local, *, row_axis, col_axis, bn, use_pallas=False):
+def _local_grid2d_matvec(params, x_local, *, row_axis, col_axis, bn):
     """2-D-partitioned SpMV body (runs inside shard_map over BOTH axes).
 
     Device (r, c) holds operator panel (r, c) and an x shard laid out
@@ -1296,11 +1268,11 @@ def _local_grid2d_matvec(params, x_local, *, row_axis, col_axis, bn, use_pallas=
     plain resharding XLA inserts automatically."""
     data, cols = params
     x_panel = lax.all_gather(x_local, row_axis, tiled=True)  # (n/C,)
-    y_partial = _local_ell_spmv(data, cols, x_panel, use_pallas)  # (n/R,)
+    y_partial = _local_ell_spmv(data, cols, x_panel)  # (n/R,)
     return lax.psum_scatter(y_partial, col_axis, scatter_dimension=0, tiled=True)
 
 
-def _local_grid2d_matmat(params, X_local, *, row_axis, col_axis, bn, use_pallas=False):
+def _local_grid2d_matmat(params, X_local, *, row_axis, col_axis, bn):
     """Multi-RHS twin of :func:`_local_grid2d_matvec`."""
     data, cols = params
     X_panel = lax.all_gather(X_local, row_axis, tiled=True)  # (n/C, p)
@@ -1311,8 +1283,8 @@ def _local_grid2d_matmat(params, X_local, *, row_axis, col_axis, bn, use_pallas=
 _GRID2D_CACHE: dict = {}
 
 
-def _get_grid2d_apply(mesh, row_axis, col_axis, bn, use_pallas, matmat: bool):
-    key = (mesh, row_axis, col_axis, bn, use_pallas, matmat)
+def _get_grid2d_apply(mesh, row_axis, col_axis, bn, matmat: bool):
+    key = (mesh, row_axis, col_axis, bn, matmat)
     fn = _GRID2D_CACHE.get(key)
     if fn is not None:
         return fn
@@ -1321,11 +1293,10 @@ def _get_grid2d_apply(mesh, row_axis, col_axis, bn, use_pallas, matmat: bool):
     x_spec = P((col_axis, row_axis), *tail)
     y_spec = P((row_axis, col_axis), *tail)
     sharded = shard_map(
-        partial(body, row_axis=row_axis, col_axis=col_axis, bn=bn, use_pallas=use_pallas),
+        partial(body, row_axis=row_axis, col_axis=col_axis, bn=bn),
         mesh=mesh,
         in_specs=((P((row_axis, col_axis)), P((row_axis, col_axis))), x_spec),
         out_specs=y_spec,
-        check_vma=not use_pallas,
     )
     fn = jax.jit(sharded)
     _GRID2D_CACHE[key] = fn
@@ -1338,7 +1309,6 @@ def mesh_operator_2d(
     *,
     row_axis: str | None = None,
     col_axis: str | None = None,
-    use_pallas: bool | str = False,
 ) -> LinearOperator:
     """Global-array operator over a 2-D device mesh: the operator splits
     into an R×C panel grid, x shards over (cols, rows), y over
@@ -1356,10 +1326,10 @@ def mesh_operator_2d(
     data, cols = split_bsr_grid(A, R, C)
     bn = A.block_shape[1]
     mv = partial(
-        _call_mesh_fn, _get_grid2d_apply(mesh, row_axis, col_axis, bn, use_pallas, False)
+        _call_mesh_fn, _get_grid2d_apply(mesh, row_axis, col_axis, bn, False)
     )
     mm = partial(
-        _call_mesh_fn, _get_grid2d_apply(mesh, row_axis, col_axis, bn, use_pallas, True)
+        _call_mesh_fn, _get_grid2d_apply(mesh, row_axis, col_axis, bn, True)
     )
     return LinearOperator(
         mv, ((data, cols),), A.shape, _acc_dtype_of(A.dtype), matmat_fn=mm
@@ -1370,9 +1340,9 @@ _MESH_OP_CACHE: dict = {}
 
 
 def _get_mesh_apply(
-    mesh, axis_name, mode, bn, use_pallas, n_op_args, matmat: bool, sym_reach=-1
+    mesh, axis_name, mode, bn, use_pallas, n_op_args, matmat: bool
 ):
-    key = (mesh, axis_name, mode, bn, use_pallas, matmat, sym_reach)
+    key = (mesh, axis_name, mode, bn, use_pallas, matmat)
     fn = _MESH_OP_CACHE.get(key)
     if fn is not None:
         return fn
@@ -1381,18 +1351,15 @@ def _get_mesh_apply(
         op_arrays, x_local = args[:-1], args[-1]
         if mode == "allgather":
             f = _local_allgather_matmat if matmat else _local_allgather_matvec
-            return f(op_arrays, x_local, axis_name=axis_name, bn=bn, use_pallas=use_pallas)
+            return f(op_arrays, x_local, axis_name=axis_name, bn=bn)
         if mode == "colsplit":
             f = _local_colsplit_matmat if matmat else _local_colsplit_matvec
-            return f(op_arrays, x_local, axis_name=axis_name, bn=bn, use_pallas=use_pallas)
+            return f(op_arrays, x_local, axis_name=axis_name, bn=bn)
         if mode == "halo":
             f = halo_matmat if matmat else halo_matvec
             return f(*op_arrays, x_local, axis_name=axis_name, bn=bn)
         f = sym_halo_matmat if matmat else sym_halo_matvec
-        return f(
-            *op_arrays, x_local, axis_name=axis_name, bn=bn, use_pallas=use_pallas,
-            sym_reach=sym_reach,
-        )
+        return f(*op_arrays, x_local, axis_name=axis_name, bn=bn, use_pallas=use_pallas)
 
     x_spec = P(axis_name, None) if matmat else P(axis_name)
     sharded = shard_map(
@@ -1466,22 +1433,13 @@ def mesh_operator(
         )
     op_arrays, bn = _split_for_mode(A, matvec_mode, nd)
     n_op_args = len(op_arrays)
-    sym_reach = (
-        sym_inpanel_reach(op_arrays[1], op_arrays[2], op_arrays[0].shape[0] // nd)
-        if matvec_mode == "sym_halo"
-        else -1
-    )
     mv = partial(
         _call_mesh_fn,
-        _get_mesh_apply(
-            mesh, axis_name, matvec_mode, bn, use_pallas, n_op_args, False, sym_reach
-        ),
+        _get_mesh_apply(mesh, axis_name, matvec_mode, bn, use_pallas, n_op_args, False),
     )
     mm = partial(
         _call_mesh_fn,
-        _get_mesh_apply(
-            mesh, axis_name, matvec_mode, bn, use_pallas, n_op_args, True, sym_reach
-        ),
+        _get_mesh_apply(mesh, axis_name, matvec_mode, bn, use_pallas, n_op_args, True),
     )
     dtype = _acc_dtype_of(A.dtype)
     return LinearOperator(
@@ -1511,7 +1469,7 @@ class DistributedKrylovSchurArnoldiSolver(_DistributedBSRSolverMixin, KrylovSchu
         mesh = mesh if mesh is not None else make_mesh(axis_name=axis_name)
         orig_n = bsr.shape[0]
         bsr = pad_bsr_for_mesh(bsr, mesh.shape[axis_name])
-        super().__init__(bsr.as_linear_operator(use_pallas=False), options)
+        super().__init__(bsr.as_linear_operator(), options)
         self._init_distributed(bsr, mesh, axis_name, matvec_mode, orig_n, use_pallas)
 
 
@@ -1525,7 +1483,8 @@ def _local_ell_spmm(data, cols, X):
     Xb = X.reshape(-1, bn, X.shape[1])[cols]  # (nbr, k, bn, p)
     acc = _acc_dtype_of(data.dtype)
     Y = jnp.einsum(
-        "rkij,rkjb->rib", data, Xb.astype(acc), preferred_element_type=acc
+        "rkij,rkjb->rib", data, Xb.astype(acc), preferred_element_type=acc,
+        precision=lax.Precision.HIGHEST,
     )
     return Y.reshape(-1, X.shape[1]).astype(acc)
 

@@ -3,7 +3,7 @@
 The reference has **no** parallelism or communication backend of any
 kind (SURVEY.md §2: no MPI/NCCL/threads anywhere) — this subsystem is
 net-new, mandated by BASELINE.json's north star: operators row/block-
-partitioned over a TPU pod slice, collectives over ICI via
+partitioned over a device mesh, collectives over the interconnect via
 ``shard_map``/``pjit``, multi-host process groups via
 ``jax.distributed``.
 """
@@ -63,8 +63,8 @@ def initialize_multihost(
     Validation added round 3 (the wrapper is untestable end-to-end on a
     1-host box, so argument-contract errors must surface HERE, not as a
     coordinator-timeout hang minutes later on a pod): the three
-    arguments must be given together or not at all (all-None = TPU
-    environment auto-detection), ``process_id`` must lie in
+    arguments must be given together or not at all (all-None = the
+    environment's own auto-detection), ``process_id`` must lie in
     ``[0, num_processes)``, and a repeated call is rejected with a clear
     message instead of jax's RuntimeError.
 
@@ -77,8 +77,8 @@ def initialize_multihost(
     if any(given) and not all(given):
         raise ValueError(
             "initialize_multihost needs coordinator_address, num_processes "
-            "AND process_id together (or none of them, for TPU-environment "
-            "auto-detection)"
+            "AND process_id together (or none of them, for the environment's "
+            "own auto-detection)"
         )
     if num_processes is not None:
         num_processes = int(num_processes)

@@ -62,8 +62,6 @@ def _to_bsr_for_mesh(A, coo, bsr, block_shape):
     mode consumes half-traffic storage natively (an accelerate()-packed
     operator rides the mesh this way; restore the eigenvectors with the
     AcceleratedOperator afterwards)."""
-    import jax
-
     from ..sparse.bsr import bsr_from_coo_arrays
     from ..sparse.sym_bsr import SymBSRMatrix
 
@@ -74,9 +72,8 @@ def _to_bsr_for_mesh(A, coo, bsr, block_shape):
     if coo is not None:
         if block_shape is None:
             # SQUARE blocks: rows and cols pad identically, so the padded
-            # operator stays square for the Lanczos/Arnoldi drivers (a
-            # rectangular (8,128) default padded most n to m != n)
-            block_shape = (8, 8) if jax.default_backend() == "tpu" else (4, 4)
+            # operator stays square for the Lanczos/Arnoldi drivers
+            block_shape = (4, 4)
         return bsr_from_coo_arrays(
             np.asarray(coo.row),
             np.asarray(coo.col),
@@ -110,7 +107,7 @@ def eigsh(
     refine: bool | int = False,
     v0=None,
     accelerate: bool = False,
-    use_pallas: bool | str = False,
+    use_pallas: bool | str | None = None,
 ) -> LanczosResult:
     """k extremal (or σ-targeted) eigenpairs of a Hermitian operator.
 
@@ -135,14 +132,18 @@ def eigsh(
     accelerated operands.
     accelerate: repack a scalar-sparse operand through
     :func:`eigenex_tpu.sparse.accelerate.accelerate` (RCM reorder +
-    dense-block Pallas kernels — the fast path for unstructured
-    operators; complex Hermitian included) and solve in permuted space,
-    restoring eigenvectors to original coordinates.  An
+    dense-block storage and the half-traffic symmetric kernel — the fast
+    path for unstructured operators; complex Hermitian included) and
+    solve in permuted space, restoring eigenvectors to original
+    coordinates.  An
     :class:`~eigenex_tpu.sparse.accelerate.AcceleratedOperator` operand
     takes this route implicitly.
-    use_pallas: with ``mesh=``, run the shard-LOCAL SpMV through the
-    Pallas kernels (TPU pods; the default XLA local path is correct
-    everywhere and is what the CPU virtual-mesh tests execute).
+    use_pallas: with ``mesh=`` and ``matvec_mode="sym_halo"``, the
+    shard-LOCAL symmetric SpMV: None (default) applies the backend rule
+    of :func:`~eigenex_tpu.sparse.sym_bsr.kernel_route` (the GPU kernel
+    for f32/bf16 storage on a CUDA device, XLA otherwise), True forces
+    the kernel, False XLA, "interpret" runs the kernel in Pallas
+    interpret mode (tests only).  The other mesh modes run on XLA.
     """
     from ..sparse.accelerate import AcceleratedOperator
     from ..sparse.coo import COOMatrix as _COO
@@ -576,7 +577,7 @@ def _restore_accelerated(res, acc, k, refine, coo) -> LanczosResult:
 
 def _eigsh_accelerated_mesh(
     acc, k, *, which, sigma, tol, max_subspace, max_restarts, seed, inner_tol,
-    refine, v0, coo, mesh, matvec_mode, use_pallas=False,
+    refine, v0, coo, mesh, matvec_mode, use_pallas=None,
 ) -> LanczosResult:
     """eigsh for an :class:`AcceleratedOperator` UNDER a device mesh —
     the one-call composition of the two flagship capabilities: RCM +
@@ -896,7 +897,7 @@ def _maybe_refine_general(res, coo, refine, which: str | None = None, sigma=None
     from .refine import general_inverse_iteration_refine
     from .krylov_schur import _which_key
 
-    iters = int(refine) if not isinstance(refine, bool) else 60
+    iters = int(refine) if not isinstance(refine, bool) else 100
     lam, X, _ = general_inverse_iteration_refine(
         coo, np.asarray(res.eigenvectors), np.asarray(res.eigenvalues), iters=iters
     )
@@ -1339,8 +1340,7 @@ def _svds_accelerated(
     full accelerate × mesh composition on the SVD path.
 
     Reference class: TensorSVD at BASELINE config-4 scale
-    (tensor_svd.hpp:172); the scalar COO Gram path this replaces
-    measures 0.04-0.07 Gnnz/s (round-4 diagnosis)."""
+    (tensor_svd.hpp:172); it replaces the scalar COO Gram path."""
     import jax.numpy as jnp
 
     from ..parallel.distributed import _padding_safe_v0

@@ -2,7 +2,7 @@
 
 Net-new relative to the reference (which iterates single vectors only):
 block Krylov iteration with block width ``b`` multiplies the operator by
-``b`` vectors at once — the SpMM path that actually feeds the MXU dense
+``b`` vectors at once — the SpMM path that actually feeds the matrix units dense
 columns (single-vector SpMV is HBM-bound; the block version amortizes
 every operator byte over b right-hand sides) — and, unlike single-vector
 Lanczos, resolves degenerate/clustered eigenvalues (a multiplicity-m
@@ -10,7 +10,7 @@ eigenvalue needs m independent directions, which one Krylov vector can
 never provide).
 
 Structure mirrors the Arnoldi engine: preallocated basis rows,
-masked-CGS2 block orthogonalization (two (m, n)x(n, b) MXU matmuls per
+masked-CGS2 block orthogonalization (two (m, n)x(n, b) matmuls per
 pass), thin-QR of each residual block for the next basis block, and the
 band-projected matrix assembled in the Hessenberg buffer; the host loop
 symmetrizes and eigh's it every check.
@@ -108,10 +108,10 @@ def _block_chunk(
         # block CGS2: two projection passes against all filled rows
         C_total = jnp.zeros((m + b, b), dtype)
         for _ in range(2):
-            # DEFAULT precision on purpose: V is the carried in-loop
-            # basis (see ops/orthogonalize.py precision note)
-            C = jnp.where(mask, state.V.conj() @ W.T, 0)  # (m+b, b)
-            W = W - C.T @ state.V
+            # HIGHEST: TF32 here would leave the basis orthogonal only
+            # to ~1e-3 (see ops/orthogonalize.py precision note)
+            C = jnp.where(mask, jnp.matmul(state.V.conj(), W.T, precision="highest"), 0)  # (m+b, b)
+            W = W - jnp.matmul(C.T, state.V, precision="highest")
             C_total = C_total + C
         # thin QR of the residual block: W.T = Q R
         Q, R = jnp.linalg.qr(W.T)  # (n, b), (b, b)

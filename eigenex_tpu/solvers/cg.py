@@ -3,7 +3,7 @@
 The reference has no linear solver, but BASELINE.json config 5 demands
 **shift-invert Lanczos** ("10^8-row BSR Hamiltonian ... shift-invert
 Lanczos"), whose operator is (A − σI)⁻¹ applied per matvec.  For a
-Hermitian A the natural TPU-native inner solver is CG: matrix-free,
+Hermitian A the natural accelerator-native inner solver is CG: matrix-free,
 static shapes, one ``lax.while_loop``, axis-name aware so the same code
 runs row-sharded under ``shard_map`` (inner products complete with
 ``psum``, exactly like the Lanczos Gram-Schmidt).
@@ -29,7 +29,7 @@ def _cg_body_factory(axis_name):
         return lax.psum(x, axis_name) if axis_name is not None else x
 
     def vdot(a, b):
-        return psum_if(jnp.vdot(a, b))
+        return psum_if(jnp.vdot(a, b, precision="highest"))
 
     return psum_if, vdot
 

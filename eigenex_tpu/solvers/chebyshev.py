@@ -10,7 +10,7 @@ polynomials grow exponentially outside [-1, 1], so mapping the unwanted
 spectral range onto [-1, 1] turns p(A) into a filter that amplifies the
 window around the target σ by factors of ~cosh(m·acosh(|t(σ)|)).
 
-TPU-wise this is the most compiler-friendly eigensolver in the library:
+On an accelerator this is the most compiler-friendly eigensolver in the library:
 one iteration = a degree-m three-term SpMM recurrence (``lax.fori_loop``
 of ``op.matmat`` — the bf16/Pallas block path) + one thin-QR + one small
 Rayleigh–Ritz; no inner CG/GMRES, no data-dependent control flow on
@@ -62,7 +62,7 @@ def chebyshev_filter_apply(
     Standard three-term recurrence on the affine-mapped operator
     t(A) = (2A − (hi+lo)I) / (hi − lo):
         T_0 = X,  T_1 = t(A)X,  T_{k+1} = 2·t(A)T_k − T_{k-1}.
-    All device work is ``op.matmat`` (the SpMM/MXU path); the loop is a
+    All device work is ``op.matmat`` (the SpMM/matmul path); the loop is a
     ``lax.fori_loop`` with static shapes.
     """
     c = (hi + lo) / 2.0
@@ -440,7 +440,7 @@ def mesh_filter_operand(A, mesh, matvec_mode, spectral_bounds, seed, use_pallas=
             )
         nrc = mesh.shape[axis] * mesh.shape[mesh.axis_names[1]]
         padded = pad_bsr_for_mesh(A, nrc)
-        op = mesh_operator_2d(padded, mesh, use_pallas=use_pallas)
+        op = mesh_operator_2d(padded, mesh)
         return op, orig_n, padded.shape[0], bounds
     padded = pad_bsr_for_mesh(A, mesh.shape[axis])
     op = mesh_operator(

@@ -8,7 +8,7 @@ tridiagonal system solves EXACTLY in one fused XLA pass
 σ-targeted eigenpairs of e.g. the 1D Laplacian (BASELINE config 1, whose
 low end is clustered at relative gaps ~1e-7 and needs thousands of plain
 Lanczos iterations) converge in a handful of outer iterations with an
-exact, jittable, TPU-native inner solve.
+exact, jittable inner solve.
 
 The reference has no linear solver at all; its route to clustered
 spectra is running Lanczos to the full subspace (lanczos.hpp:744-768).

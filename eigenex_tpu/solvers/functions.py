@@ -1,6 +1,6 @@
 """Krylov f(A)|v⟩ and exp(xA)|v⟩ application.
 
-TPU-native re-design of the reference's function solvers:
+JAX-native re-design of the reference's function solvers:
 
 - ``LanczosFunctionSolver`` (lanczos.hpp:938-1002): f(A)v for Hermitian A
   via the eigen-expansion of the Lanczos tridiagonal —
@@ -77,7 +77,9 @@ def lanczos_function_apply(
     # f(T) e1 = Y f(θ) Yᵀ e1  (lanczos.hpp:976-988)
     coeff = Y @ (ftheta * np.conj(Y[0, :]))
     out_dtype = jnp.promote_types(op.dtype, jnp.asarray(coeff).dtype)
-    return nrm.astype(out_dtype) * (state.V[:k].T.astype(out_dtype) @ jnp.asarray(coeff, out_dtype))
+    return nrm.astype(out_dtype) * jnp.matmul(
+        state.V[:k].T.astype(out_dtype), jnp.asarray(coeff, out_dtype), precision="highest"
+    )
 
 
 def lanczos_expmv(op, v: jax.Array, x=1.0, num_steps: int = 64) -> jax.Array:

@@ -4,7 +4,7 @@ Companion to :mod:`eigenex_tpu.solvers.cg` (Hermitian): GMRES(m) gives
 the shift-invert inner solve for *Arnoldi* eigenproblems and general
 linear systems.  Reuses the Arnoldi engine verbatim — each cycle builds
 the Krylov basis + Hessenberg with :func:`arnoldi_steps` (masked CGS2 on
-the MXU, static shapes), then solves the tiny (m+1, m) least-squares
+the matrix units, static shapes), then solves the tiny (m+1, m) least-squares
 problem on host and updates the iterate with one basis matmul.
 """
 
@@ -72,7 +72,7 @@ def gmres_solve(
         e1 = np.zeros(k + 1, H.dtype)
         e1[0] = beta
         y, *_ = np.linalg.lstsq(H, e1, rcond=None)
-        x = x + state.V[:k].T @ jnp.asarray(y, op.dtype)
+        x = x + jnp.matmul(state.V[:k].T, jnp.asarray(y, op.dtype), precision="highest")
     r = b - op.matvec(x)
     rel = float(jnp.linalg.norm(r)) / bnorm
     return x, rel, max_restarts
@@ -138,7 +138,7 @@ def gmres_solve_jit(op, b, x0=None, *, restart: int = 32, cycles: int = 10, tol=
         )
         e1 = jnp.zeros((m + 1,), dtype).at[0].set(beta.astype(dtype))
         y, *_ = jnp.linalg.lstsq(state.H, e1)
-        res_small = jnp.linalg.norm(state.H @ y - e1).astype(rdt)
+        res_small = jnp.linalg.norm(jnp.matmul(state.H, y, precision="highest") - e1).astype(rdt)
         x_new = x + jnp.matmul(state.V[:m].T, y, precision="highest")
         ok = jnp.all(jnp.isfinite(x_new)) & jnp.logical_not(state.failed)
         x_new = jnp.where(ok, x_new, x)

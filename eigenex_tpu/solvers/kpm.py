@@ -7,8 +7,8 @@ triplets_matrix.hpp:486-523).  KPM estimates GLOBAL spectral structure
 of a Hermitian operator from matvecs alone:
 
 - Chebyshev moments μ_k = tr T_k(t(A)) by Hutchinson stochastic trace
-  estimation — on TPU this is one three-term SpMM recurrence over a
-  block of random probes (``op.matmat`` per degree, MXU path, zero host
+  estimation — on the device this is one three-term SpMM recurrence over a
+  block of random probes (``op.matmat`` per degree, matmul path, zero host
   syncs inside the jitted moment loop);
 - Jackson-damped moment summation gives the density of states (DOS)
   and eigenvalue COUNTS per interval (``eigenvalue_count``);

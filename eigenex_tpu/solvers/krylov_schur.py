@@ -11,7 +11,7 @@ spectra (Stewart 2001).
 Device work per restart: the (p, m) × (m, n) basis compression; all
 small-matrix work (Schur, ordering, residuals) is host LAPACK.
 The iteration engine is the same ``arnoldi_steps`` chunk as everything
-else (masked CGS2 on the MXU, static shapes).
+else (masked CGS2 as matmuls, static shapes).
 """
 
 from __future__ import annotations
@@ -164,9 +164,13 @@ class KrylovSchurArnoldiSolver:
             H = np.asarray(state.H[:k, :k]).astype(np.complex128)
             beta = float(self.state_residue(state))
             T, Q, evals_desc = _ordered_schur(H, min(p, k - 1), o.which)
-            # residual bound per Schur vector: |β · Q[k-1, i]|
-            resid = np.abs(beta * Q[k - 1, :])
             nev_eff = min(nev, k)
+            # residual of each wanted Ritz pair as extraction returns it
+            # (unit eigenvectors y of H): |β · y[k-1]|.  For a non-normal
+            # H it exceeds the Schur vectors' |β · Q[k-1, i]|.
+            evals_h, Y = np.linalg.eig(H)
+            sel = np.argsort(_which_key(evals_h, o.which), kind="stable")[:nev_eff]
+            resid = np.abs(beta * Y[k - 1, sel])
             cur = np.diag(T)[:nev_eff]
             scale = max(float(np.max(np.abs(evals_desc))) if len(evals_desc) else 1.0, 1e-300)
             self.trace.record(
@@ -240,9 +244,11 @@ class KrylovSchurArnoldiSolver:
 
         # ---- extraction ----
         k = int(state.k)
-        H = np.asarray(state.H[:k, :k]).astype(np.complex128)
-        evals, Y = np.linalg.eig(H)
-        order = np.argsort(_which_key(evals, o.which), kind="stable")
+        # eig of the real H when the operator is real: its conjugate
+        # pairs come out exact, so they tie under "LM"/"LR" and the tie
+        # goes to the positive imaginary part, whatever order eig used
+        evals, Y = (a.astype(np.complex128) for a in np.linalg.eig(np.asarray(state.H[:k, :k])))
+        order = np.lexsort((-evals.imag, _which_key(evals, o.which)))
         sel = order[: min(o.max_eigenvalues, k)]
         evals_out = evals[sel] - complex(o.eigenvalue_shift)
         vecs = None

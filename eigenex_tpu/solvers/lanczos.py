@@ -1,6 +1,6 @@
 """Lanczos eigensolver for Hermitian matrix-free operators.
 
-TPU-native re-design of the reference's Lanczos stack
+JAX-native re-design of the reference's Lanczos stack
 (include/cmpt/eigen_ex/lanczos.hpp): ``LanczosBase`` (basis builder,
 :105), ``LanczosEigenSolver`` (:469) with its fluent configuration
 (:517-622), convergence machinery (:853-896) and breakdown semantics
@@ -14,7 +14,7 @@ Key architectural departures from the reference (per SURVEY.md §7):
   ``lax.fori_loop`` — XLA requires static shapes.
 - The per-step selective reorthogonalization loop of k sequential dots
   (lanczos.hpp:411-426) becomes masked **CGS2**: two basis matmuls on
-  the MXU (:func:`eigenex_tpu.ops.orthogonalize.cgs2`).
+  the matrix units (:func:`eigenex_tpu.ops.orthogonalize.cgs2`).
 - The data-dependent C++ ``while`` with per-step tridiagonal
   re-eigendecomposition (lanczos.hpp:744-781) becomes a host control
   loop around jitted fixed-size step *chunks*: convergence is checked
@@ -83,8 +83,8 @@ class LanczosOptions:
         default (1e-12 f64 / 1e-4 f32, lanczos.hpp:67-78).
     min_iterations / max_iterations: iteration bounds; UNLIMITED = -1
         means no minimum / run to the full subspace (lanczos.hpp:493).
-    max_subspace: preallocation bound on the Krylov dimension (TPU-only
-        knob: static shapes require it; capped at n).
+    max_subspace: preallocation bound on the Krylov dimension (a
+        knob of this library: static shapes require it; capped at n).
     reorthogonalize_interval: CGS2 against the whole basis every this
         many steps; 1 = full reorthogonalization, 0 = never
         (cf. reorthogonalizeInterval lanczos.hpp:411-426).
@@ -97,8 +97,8 @@ class LanczosOptions:
         from reported eigenvalues (lanczos.hpp:155,390-392,786).
     breakdown_threshold: β below this ⇒ invariant subspace
         (lanczos.hpp:433-437); None → dtype default.
-    check_every: host convergence-check interval in iterations (TPU-only
-        knob; the reference checks every step).
+    check_every: host convergence-check interval in iterations (a
+        knob of this library; the reference checks every step).
     compute_eigenvectors: build Ritz vectors (lanczos.hpp:798-817).
     seed: PRNG seed for the random initial vector (lanczos.hpp:125-135).
     """
@@ -351,8 +351,8 @@ def lanczos_steps(
     deflate: jax.Array | None = None,
 ) -> LanczosState:
     """Public fixed-step basis builder (the ``LanczosBase`` role,
-    lanczos.hpp:105-465) — fully jittable, used by the solver, the
-    benchmark, and ``__graft_entry__``."""
+    lanczos.hpp:105-465) — fully jittable, used by the solver and the
+    benchmarks."""
     if breakdown_threshold is None:
         breakdown_threshold = default_breakdown_threshold(op.dtype)
     has_deflate = deflate is not None
@@ -424,7 +424,7 @@ def _phase_fix(X: jax.Array, eps: float = 0.0) -> jax.Array:
 
 @partial(jax.jit, static_argnames=("k",))
 def _ritz_vectors(V: jax.Array, Y: jax.Array, k: int) -> jax.Array:
-    """x_j = Σ_m Y[m, j] · V[m]  (lanczos.hpp:798-804), one MXU matmul;
+    """x_j = Σ_m Y[m, j] · V[m]  (lanczos.hpp:798-804), one matmul;
     then normalize + phase-fix (:806-816)."""
     X = jnp.matmul(V[:k].T, Y.astype(V.dtype), precision="highest")  # (n, p)
     X = X / jnp.linalg.norm(X, axis=0, keepdims=True)

@@ -4,10 +4,10 @@ Net-new relative to the reference (whose only Hermitian driver is
 single-vector Lanczos, lanczos.hpp:469): LOBPCG iterates a *block* of b
 approximate eigenvectors with a 3b-dimensional trial space [X, W, P]
 (current block, preconditioned residuals, previous search directions).
-It is the TPU-natural choice for the lowest/highest eigenpairs because
+It is the accelerator-natural choice for the lowest/highest eigenpairs because
 
 - every heavy operation is a tall-skinny matmul — ``A @ S`` (the
-  operator SpMM path), ``S^H (AS)`` Gram products — all MXU work, no
+  operator SpMM path), ``S^H (AS)`` Gram products — all matmul work, no
   sequential recurrence;
 - it accepts a PRECONDITIONER ``T ≈ A⁻¹`` (the one thing Krylov methods
   cannot exploit without restarting machinery);

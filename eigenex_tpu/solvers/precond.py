@@ -4,7 +4,7 @@ The reference has no preconditioning anywhere (its solvers consume a
 bare ``MatMulFunction``, lanczos.hpp:116); preconditioners are net-new
 framework surface feeding :func:`~eigenex_tpu.solvers.lobpcg.lobpcg`
 (``preconditioner=``), ``eigsh(..., preconditioner=)`` and the CG/GMRES
-inner solves.  TPU-wise a preconditioner application must itself be
+inner solves.  On the device a preconditioner application must itself be
 jit-friendly elementwise/matmul work; the constructors here return plain
 callables on (n,) vectors or (n, b) blocks.
 """

@@ -1,8 +1,8 @@
 """Host-side float64 eigenpair refinement.
 
-TPU hardware iterates in f32/bf16; the baseline demands eigenvalues
-matching the reference to 1e-10.  The bridge is hybrid precision:
-iterate on the TPU, then refine each extracted Ritz pair on the host in
+The device iterates in f32/bf16 storage; the baseline demands
+eigenvalues matching the reference to 1e-10.  The bridge is hybrid
+precision: iterate on the device, then refine each extracted Ritz pair on the host in
 float64 —
 
 1. **Rayleigh-quotient refinement**: λ̃ = ⟨x, A x⟩ / ⟨x, x⟩ evaluated in
@@ -12,12 +12,12 @@ float64 —
    operator, so Rayleigh alone typically lands ~1e-5–1e-8.
 2. **Inverse-iteration polish** (SciPy sparse LU on the f64 triplets):
    two iterations from an f32-grade pair reach f64 machine precision
-   (measured 1e-14 on the TPU hybrid sample) — this is the path that
+   (samples/sample_hybrid_refine.py checks 1e-10) — this is the path that
    guarantees the 1e-10 baseline target.
 
-Tip: on TPU machines build the f64 operator with
+Tip: build the f64 operator with
 ``COOBuilder.build(to_device=False)`` — a device array would silently
-truncate the triplets to f32.
+truncate the triplets to f32 unless x64 is on.
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ def general_rayleigh_refine(coo: COOMatrix, X, evals=None):
 
 
 def general_inverse_iteration_refine(
-    coo: COOMatrix, X, evals=None, iters: int = 60, tol: float | None = None
+    coo: COOMatrix, X, evals=None, iters: int = 100, tol: float | None = None
 ):
     """f64/c128 residual-controlled BLOCK inverse-iteration polish for
     NON-Hermitian eigenpairs — the hybrid-precision bridge for
@@ -137,9 +137,9 @@ def general_inverse_iteration_refine(
     X: (n, p) approximate eigenvectors (complex allowed over a real
     operator — conjugate-pair eigenvalues welcome); evals: (p,) complex
     shift estimates (None → Rayleigh quotients of X); iters: safety cap
-    (the convection–diffusion baseline needs ~25: linear contraction
-    while the shifts cross the pseudospectral cloud, quadratic once
-    inside); tol: per-pair residual target relative to max|λ| (default
+    (the convection–diffusion baseline needs 25–80 steps, depending on
+    where in the pseudospectral cloud the pairs start: linear contraction
+    while the shifts cross it, quadratic once inside); tol: per-pair residual target relative to max|λ| (default
     1e-11, an order under the 1e-10 baseline certificate).  The iterate
     with the smallest max-residual is the one returned — near the f64
     floor the trajectory flutters, so "last" is not "best".

@@ -6,10 +6,10 @@ of a Laplacian) that means the full subspace is needed for 1e-10
 accuracy.  Thick restart (Wu & Simon 2000) bounds memory at
 ``max_subspace`` while retaining the convergence of a long run: when the
 subspace fills, the best ``num_kept`` Ritz vectors are compressed into
-the leading basis slots (one batched MXU matmul), the residual vector is
+the leading basis slots (one batched matmul), the residual vector is
 appended, and iteration continues with the arrowhead-projected matrix.
 
-TPU design: the engine is the *Arnoldi* chunk
+Design: the engine is the *Arnoldi* chunk
 (:func:`eigenex_tpu.solvers.arnoldi.arnoldi_steps`) — its per-step
 masked-CGS2 against the whole basis computes exactly the projected-
 matrix column needed after a restart (where the three-term recurrence

@@ -1,29 +1,22 @@
 """Scalar-sparse acceleration: band-reducing reorder + dense-block packing.
 
 The reference's only sparse operator is the scalar COO scatter
-(triplets_matrix.hpp:314-318); its TPU-native translation (gather +
-``segment_sum``) is dtype-general but measures **0.04-0.07 Gnnz/s** on
-v5e for unstructured operators (the Heisenberg sector Hamiltonian, any
-``.mtx`` import): scalar gathers serialize at ~13 cycles/element, so no
-XLA formulation of scalar SpMV can be fast.  TPU bandwidth only flows
-through dense tiles.
-
-This module is the bridge from "born scalar" to the dense-block Pallas
-kernels (:mod:`eigenex_tpu.ops.pallas_spmv`):
+(triplets_matrix.hpp:314-318); its translation here (gather +
+``segment_sum``) is dtype-general.  This module is the bridge from "born
+scalar" to the dense-block containers and the symmetric block kernel
+(:mod:`eigenex_tpu.ops.pallas_spmv`).  Whether the pack still pays on a
+GPU, where scalar gathers are cheap, is an open measurement (ROADMAP).
 
 1. **Reorder** — a reverse Cuthill-McKee permutation over the
    (symmetrized) pattern concentrates entries near the diagonal
    (Heisenberg L=20: bandwidth 48,620 → 5,573 = 0.03·n).
 2. **Pack** — the permuted triplets densify into 128x128 (symmetric:
    diagonal + strictly-upper) or 32x128 (general) BSR-ELL blocks.  Block
-   fill is low (~0.4-1%) but the kernels then stream at the HBM roofline
-   (measured 610-790 GB/s on v5e), so effective throughput is
-   roofline x fill — **2.66 Gnnz/s for the L=24 Heisenberg sector
-   (35.2M nnz), 76x the scalar path**; the end-to-end ground state went
-   from 64-207 s to 4.3 s warm.  bf16 storage is auto-selected only
-   when *lossless* (every value round-trips bf16 exactly — dyadic
-   couplings do), and the Pallas dots split the f32 x vector into bf16
-   components so bf16 storage never degrades Krylov convergence.
+   fill is low (~0.4-1%), so effective throughput is the block-streaming
+   rate times fill.  bf16 storage is auto-selected only when *lossless*
+   (every value round-trips bf16 exactly — dyadic couplings do), and
+   every product accumulates the f32 x vector in f32, so bf16 storage
+   never degrades Krylov convergence.
 3. **Solve in permuted space** — the permutation is applied once to the
    operator on host; solvers run entirely in permuted coordinates
    (no per-matvec gather), and eigenvectors are unpermuted at the end
@@ -355,7 +348,7 @@ def _pack_general(r, c, v, m_pad, n_pad, bm, bn, use_native, dtype, stage=None):
 
 @dataclasses.dataclass(frozen=True)
 class AcceleratedOperator:
-    """A scalar-sparse operator repacked for the Pallas block kernels.
+    """A scalar-sparse operator repacked into dense-block storage.
 
     Lives in PERMUTED + PADDED coordinates: ``matrix`` is
     ``P·A·Pᵀ`` (zero-padded to the block multiple), where P is the
@@ -396,8 +389,8 @@ class AcceleratedOperator:
         """Unpadded working ROW dimension (= :attr:`n_work` for square)."""
         return len(self.row_perm) if self.row_perm is not None else len(self.perm)
 
-    def as_linear_operator(self, use_pallas: bool | None = None) -> LinearOperator:
-        return self.matrix.as_linear_operator(use_pallas=use_pallas)
+    def as_linear_operator(self) -> LinearOperator:
+        return self.matrix.as_linear_operator()
 
     def embed(self, v) -> jax.Array:
         """Original COLUMN-space (n,) or (n, k) vector(s) → permuted,
@@ -644,7 +637,7 @@ def _accelerate_rectangular(
     BSR-ELL with independent row/col padding — the at-scale path for the
     svds Gram pipeline (reference class: tensor_svd.hpp:172 at the
     BASELINE config-4 scale), where both Gram matvecs otherwise ride the
-    0.04-0.07 Gnnz/s scalar COO path."""
+    scalar COO path."""
     m, n = shape
     ts = time.time()
     if merge_duplicates:
@@ -721,7 +714,7 @@ def accelerate(
     reorder: bool = True,
     merge_duplicates: bool | None = None,
 ) -> AcceleratedOperator:
-    """Repack a scalar sparse operator for the dense-block TPU kernels.
+    """Repack a scalar sparse operator into dense-block storage.
 
     Parameters
     ----------
@@ -748,16 +741,12 @@ def accelerate(
         "auto" stores bf16 when every value round-trips bf16 exactly
         (lossless; halves traffic), else f32.  An explicit dtype forces.
     block : int
-        Symmetric block size (128 = the MXU/lane-native tile; the sym
-        kernels require square bn=128 blocks).
+        Symmetric block size (square; the GPU kernel takes power-of-two
+        sizes of at least 16).
     general_block : (bm, bn)
-        Block shape for non-symmetric operators.  (32, 128) is the
-        measured operating point on v5e (BASELINE round-5 sweep on the
-        config-2 stencil: 0.58/0.61/0.95/1.34/1.36 Gnnz/s at bm =
-        4/8/16/32/64 with identical fill; bn = 256 lowers fill and
-        loses) — taller blocks amortize the per-slot gather over more
-        MXU rows until the path saturates at ~80% of the fill-implied
-        HBM roofline.
+        Block shape for non-symmetric operators.  Both defaults are
+        carried over untuned; re-tuning them on the card is open
+        (ROADMAP).
     reorder : bool
         Apply the RCM band-reducing permutation (disable only for
         operators already ordered, e.g. tridiagonal).

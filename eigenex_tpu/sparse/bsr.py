@@ -1,10 +1,8 @@
-"""BSR (block-sparse row) matrix in ELLPACK-padded layout — the TPU
-performance format.
+"""BSR (block-sparse row) matrix in ELLPACK-padded layout.
 
 The reference has only COO with a serial scatter SpMV
-(triplets_matrix.hpp:314-318).  On TPU, irregular scatter wastes the
-machine; the fast layout is **block rows with a fixed (padded) number of
-column-block slots** ("BSR-ELL"):
+(triplets_matrix.hpp:314-318).  This layout stores **block rows with a
+fixed (padded) number of column-block slots** ("BSR-ELL"):
 
 - ``data``:       (n_block_rows, k_max, bm, bn) dense block stack
 - ``block_cols``: (n_block_rows, k_max) int32 column-block ids
@@ -12,11 +10,11 @@ column-block slots** ("BSR-ELL"):
   masking is needed in the inner loop)
 
 SpMV then becomes gather + batched small matmul — entirely static
-shapes, MXU/VPU-friendly, and the natural unit for row-partitioning
-across a device mesh (SURVEY.md §5: the operator's rows shard over the
-mesh; halo exchange moves whole x blocks).  A Pallas kernel over this
-layout lives in :mod:`eigenex_tpu.ops.pallas_spmv`; this module's
-XLA-native path is the fallback and the oracle.
+shapes, and the natural unit for row-partitioning across a device mesh
+(SURVEY.md §5: the operator's rows shard over the mesh; halo exchange
+moves whole x blocks).  The gather + einsum reads each block once, so
+general BSR runs on XLA everywhere; the hand-written kernel exists only
+for the symmetric half-traffic layout (:mod:`eigenex_tpu.sparse.sym_bsr`).
 """
 
 from __future__ import annotations
@@ -31,19 +29,6 @@ from ..core.operators import LinearOperator
 from ..utils.exceptions import EigenexError
 
 __all__ = ["BSRMatrix", "bsr_from_coo_arrays", "bsr_from_dense"]
-
-
-def _on_tpu_device(x) -> bool:
-    """Whether ``x``'s committed device(s) are TPUs — the Pallas-routing
-    test.  ``jax.default_backend()`` alone is wrong on machines where a
-    TPU plugin registers while compute is pinned to CPU (the CI conftest
-    case): a CPU-resident array must take the XLA path even then.
-    Tracers (no devices yet) fall back to the backend default."""
-    try:
-        devs = x.devices()
-    except Exception:
-        return jax.default_backend() == "tpu"
-    return all(d.platform == "tpu" for d in devs)
 
 
 @jax.tree_util.register_dataclass
@@ -84,7 +69,7 @@ class BSRMatrix:
     def _acc_dtype(self):
         """Accumulation dtype: low-precision storage (bf16/f16) still
         accumulates in f32 — SpMV is HBM-bound, so halving storage bytes
-        nearly doubles nnz/s while the MXU accumulates at full f32."""
+        nearly doubles nnz/s while the products accumulate at full f32."""
         if self.dtype in (jnp.bfloat16, jnp.float16):
             return jnp.float32
         return self.dtype
@@ -109,7 +94,7 @@ class BSRMatrix:
         return y.reshape(self.shape[0]).astype(acc)
 
     def matmat(self, X: jax.Array) -> jax.Array:
-        """A @ X for (n, p) dense X — block-batched MXU matmuls."""
+        """A @ X for (n, p) dense X — block-batched matmuls."""
         bm, bn = self.block_shape
         acc = self._acc_dtype
         p = X.shape[1]
@@ -124,25 +109,14 @@ class BSRMatrix:
         )
         return y.reshape(self.shape[0], p).astype(acc)
 
-    def as_linear_operator(self, use_pallas: bool | None = None) -> LinearOperator:
+    def as_linear_operator(self) -> LinearOperator:
         from .coo import _container_matmat, _container_matvec
 
-        if use_pallas is None:
-            use_pallas = _on_tpu_device(self.data)
-        if use_pallas:
-            return LinearOperator(
-                _bsr_pallas_matvec,
-                self,
-                self.shape,
-                self._acc_dtype,  # bf16 storage still yields f32 matvecs
-                rmatvec_fn=None,
-                matmat_fn=_container_matmat,
-            )
         return LinearOperator(
             _container_matvec,
             self,
             self.shape,
-            self._acc_dtype,
+            self._acc_dtype,  # bf16 storage still yields f32 matvecs
             matmat_fn=_container_matmat,
         )
 
@@ -218,12 +192,6 @@ class BSRMatrix:
         centers, radii = self.gershgorin_discs()
         re = jnp.real(centers)
         return jnp.min(re - radii), jnp.max(re + radii)
-
-
-def _bsr_pallas_matvec(p, x):
-    from ..ops.pallas_spmv import bsr_matvec_pallas
-
-    return bsr_matvec_pallas(p, x)
 
 
 def bsr_from_coo_arrays(

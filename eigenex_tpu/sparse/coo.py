@@ -1,6 +1,6 @@
 """COO (triplet) sparse matrix.
 
-TPU-native re-design of the reference's ``TripletsMatrix``
+JAX-native re-design of the reference's ``TripletsMatrix``
 (include/cmpt/eigen_ex/triplets_matrix.hpp): a mutable host-side builder
 (:class:`COOBuilder`, the analog of appendTriplet/setFromDenseMatrix/
 shrink, triplets_matrix.hpp:139-296) producing an immutable device
@@ -92,7 +92,7 @@ class COOBuilder:
         to device arrays.
 
         ``to_device=False`` keeps host NumPy arrays — use when the device
-        would truncate the dtype (f64 on TPU) and the matrix is destined
+        would truncate the dtype (f64 without x64) and the matrix is destined
         for host-side use (oracles, f64 refinement)."""
         r = np.asarray(self._r, np.int32)
         c = np.asarray(self._c, np.int32)
@@ -136,7 +136,7 @@ class COOMatrix:
 
     SpMV is ``segment_sum(v * x[c], r)`` — the XLA-native replacement for
     the serial scatter ``out[row] += in[col]*v`` (triplets_matrix.hpp:
-    314-318); on TPU this lowers to a sorted-segment reduction.
+    314-318); it lowers to a sorted-segment reduction.
     """
 
     row: jax.Array  # (nnz,) int32
@@ -178,7 +178,7 @@ class COOMatrix:
 
         Host-side operation: preserves the array kind — NumPy-backed
         (``build(to_device=False)``) matrices stay on host (keeping f64
-        on TPU machines), device-backed ones go back to the device."""
+        without x64), device-backed ones go back to the device."""
         host = isinstance(val, np.ndarray)
         r = np.asarray(row)
         c = np.asarray(col)
@@ -232,8 +232,7 @@ class COOMatrix:
         """Dense HOST array (cf. makeDenseMatrix triplets_matrix.hpp:436-443).
 
         Computed with NumPy: this is a conversion/debug utility, device
-        scatter adds nothing (and compiles pathologically slowly on some
-        TPU backends); the host copy also preserves f64 when the device
+        scatter adds nothing (and compiles slowly at size); the host copy also preserves f64 when the device
         would truncate."""
         d = np.zeros(self.shape, np.asarray(self.val).dtype)
         np.add.at(d, (np.asarray(self.row), np.asarray(self.col)), np.asarray(self.val))

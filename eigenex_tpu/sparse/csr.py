@@ -2,7 +2,7 @@
 
 The reference only has COO (triplets_matrix.hpp); CSR is part of the
 capability surface mandated by BASELINE.json ("CSR/COO/BSR storage").
-On TPU the CSR row-pointer array does not help the scatter-free
+The CSR row-pointer array does not help the scatter-free
 ``segment_sum`` execution, so :class:`CSRMatrix` stores the expanded row
 ids alongside ``indptr`` — ``indptr`` serves construction, slicing and
 interop; the compute path is identical to COO's sorted segment-sum.

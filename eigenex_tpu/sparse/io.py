@@ -3,7 +3,7 @@
 The reference has NO file IO at all: every operator is assembled in user
 code (triplets_matrix.hpp:139-178 append/setFromDenseMatrix).  Real
 workloads load operators from the standard sparse interchange format, so
-this module provides it TPU-natively: a fast single-pass native parser
+this module provides it: a fast single-pass native parser
 (``native/src/builders.cpp`` ``mm_read``, plain C ABI via ctypes) feeding
 straight into :class:`~eigenex_tpu.sparse.coo.COOMatrix` device arrays,
 with symmetry expansion done vectorized on host and a scipy.io fallback

@@ -1,6 +1,6 @@
 """Symmetric/Hermitian BSR matrix — half-traffic SpMV storage.
 
-SpMV on TPU is HBM-bandwidth-bound (the block data dominates the
+SpMV is bound by device-memory bandwidth (the block data dominates the
 traffic), and the flagship Lanczos matvec is always Hermitian.  Storing
 only the diagonal blocks plus the strictly-UPPER block triangle and
 applying each off-diagonal block twice (y[r] += B·x[c], y[c] += Bᴴ·x[r])
@@ -9,13 +9,12 @@ generic dense-einsum path cannot express (the reference's COO scatter,
 triplets_matrix.hpp:314-318, likewise reads every stored entry; its
 samples store both triangles).
 
-Measured on TPU v5e (2048×3 dense 128² blocks, ~100M nnz): 486–531
-effective Gnnz/s bf16 vs 356–374 for the best full-storage XLA path
-(~1.4×; range across timing modes/runs — bench.py prints the live row).
-
-The TPU hot path is :func:`eigenex_tpu.ops.pallas_spmv.sym_bsr_matvec_pallas`
-(sequential-grid VMEM accumulator); the XLA fallback here is the oracle
-and the CPU path.
+Only a kernel that reads each block once collects that win: the XLA path
+here reads every upper block twice (one einsum per triangle) and is the
+oracle and the route for every operand the kernel does not take.  The
+backend rule (:func:`kernel_route`) picks the Pallas/Triton kernel
+(:mod:`eigenex_tpu.ops.pallas_spmv`) for f32/bf16 storage committed to a
+CUDA device and XLA for everything else.
 """
 
 from __future__ import annotations
@@ -28,9 +27,30 @@ import numpy as np
 
 from ..core.operators import LinearOperator
 from ..utils.exceptions import EigenexError
-from .bsr import BSRMatrix, _on_tpu_device
+from .bsr import BSRMatrix
 
-__all__ = ["SymBSRMatrix", "sym_bsr_from_bsr"]
+__all__ = ["SymBSRMatrix", "kernel_route", "sym_bsr_from_bsr"]
+
+
+def kernel_route(sym) -> bool | None:
+    """The backend rule: True picks the hand-written GPU kernel, False
+    picks XLA.  The kernel runs when the blocks are on a CUDA device and
+    their storage fits it (f32 or bf16, square power-of-two blocks, see
+    :func:`~eigenex_tpu.ops.pallas_spmv.kernel_supports`).  Every other
+    operand runs on XLA: f64 and complex on purpose (the kernel
+    accumulates in f32), and arrays on any other device.
+
+    None means a traced container whose storage fits the kernel: its
+    device is not known while tracing, so the SpMV stages both routes
+    with ``lax.platform_dependent`` and the computation compiles the
+    kernel when it is lowered for CUDA and XLA's route otherwise."""
+    from ..ops.pallas_spmv import kernel_supports
+
+    if not kernel_supports(sym):
+        return False
+    if isinstance(sym.upper_data, jax.core.Tracer):
+        return None
+    return all(d.platform == "gpu" for d in sym.upper_data.devices())
 
 
 @jax.tree_util.register_dataclass
@@ -44,10 +64,8 @@ class SymBSRMatrix:
     upper_cols: jax.Array  # (nbr, ku) int32; padding slots: col 0, zero data
     shape: tuple[int, int] = dataclasses.field(metadata=dict(static=True))
     #: max (col − row) over stored upper blocks, in BLOCK units — the band
-    #: reach.  −1 = unknown.  Known finite reach enables the STREAMING
-    #: Pallas kernel (strip-windowed x, carried y scatter), which has no
-    #: problem-size cap; unknown reach restricts the Pallas path to the
-    #: VMEM-resident kernel (≲1.7M rows) with XLA fallback beyond.
+    #: reach.  −1 = unknown.  The mesh split reads it to check that the
+    #: band fits one panel.
     band_reach: int = dataclasses.field(default=-1, metadata=dict(static=True))
 
     @property
@@ -119,22 +137,12 @@ class SymBSRMatrix:
         return y.reshape(self.shape[0]).astype(acc)
 
     def matvec(self, x: jax.Array) -> jax.Array:
-        if not _on_tpu_device(self.diag_data):
-            return self._xla_matvec(x)
-        from ..ops.pallas_spmv import sym_bsr_matvec_pallas
-
-        return sym_bsr_matvec_pallas(self, x)
+        """y = A @ x through the route :func:`kernel_route` picks."""
+        return _sym_matvec(self, x)
 
     def matmat(self, X: jax.Array) -> jax.Array:
-        """Multi-RHS product.  On TPU this routes to the Pallas panel
-        kernel (:func:`eigenex_tpu.ops.pallas_spmv.sym_bsr_matmat_pallas`)
-        when the VMEM-resident X/Y panels fit, else the XLA scatter-add
-        path below."""
-        if not _on_tpu_device(self.diag_data):
-            return self._xla_matmat(X)
-        from ..ops.pallas_spmv import sym_bsr_matmat_pallas
-
-        return sym_bsr_matmat_pallas(self, X)
+        """Y = A @ X through the route :func:`kernel_route` picks."""
+        return _sym_matmat(self, X)
 
     def _xla_matmat(self, X: jax.Array) -> jax.Array:
         bm, bn = self.block_shape
@@ -164,15 +172,18 @@ class SymBSRMatrix:
         y = y.at[self.upper_cols].add(contrib.astype(acc))
         return y.reshape(self.shape[0], p).astype(acc)
 
-    def as_linear_operator(self, use_pallas: bool | None = None) -> LinearOperator:
+    def as_linear_operator(self, use_pallas: bool | str | None = None) -> LinearOperator:
+        """``use_pallas``: None applies :func:`kernel_route` at each
+        call; True forces the GPU kernel, False XLA, and "interpret" runs
+        the kernel in Pallas interpret mode (tests only)."""
         if use_pallas is None:
-            use_pallas = _on_tpu_device(self.diag_data)
-        # BOTH routes fixed at construction: inside a jit trace the
-        # container is a tracer and per-call device sniffing would fall
-        # back to default_backend(), which is wrong on machines where a
-        # TPU plugin registers while compute is pinned to CPU
-        mv = _sym_pallas_matvec if use_pallas else _sym_xla_matvec
-        mm = _sym_pallas_matmat if use_pallas else _sym_xla_matmat
+            mv, mm = _sym_matvec, _sym_matmat
+        elif use_pallas == "interpret":
+            mv, mm = _sym_interpret_matvec, _sym_interpret_matmat
+        elif use_pallas:
+            mv, mm = _sym_kernel_matvec, _sym_kernel_matmat
+        else:
+            mv, mm = _sym_xla_matvec, _sym_xla_matmat
         return LinearOperator(
             mv, self, self.shape, self._acc_dtype,  # bf16 storage -> f32 matvec
             rmatvec_fn=mv,  # Hermitian: A == Aᴴ
@@ -226,28 +237,46 @@ class SymBSRMatrix:
         return d.transpose(0, 2, 1, 3).reshape(self.shape)
 
 
-def _sym_pallas_matvec(p, x):
+def _sym_kernel_matvec(p, x, interpret=False):
     from ..ops.pallas_spmv import sym_bsr_matvec_pallas
 
-    return sym_bsr_matvec_pallas(p, x)
+    return sym_bsr_matvec_pallas(p, x, interpret=interpret)
+
+
+def _sym_kernel_matmat(p, X, interpret=False):
+    from ..ops.pallas_spmv import sym_bsr_matmat_pallas
+
+    return sym_bsr_matmat_pallas(p, X, interpret=interpret)
+
+
+def _sym_interpret_matvec(p, x):
+    return _sym_kernel_matvec(p, x, interpret=True)
+
+
+def _sym_interpret_matmat(p, X):
+    return _sym_kernel_matmat(p, X, interpret=True)
 
 
 def _sym_xla_matvec(p, x):
     return p._xla_matvec(x)
 
 
-def _sym_pallas_matmat(p, X):
-    from ..ops.pallas_spmv import sym_bsr_matmat_pallas
-
-    return sym_bsr_matmat_pallas(p, X)
-
-
 def _sym_xla_matmat(p, X):
     return p._xla_matmat(X)
 
 
-def _sym_matmat(p, X):
-    return p.matmat(X)
+def _routed(kernel, xla):
+    def apply(p, x):
+        route = kernel_route(p)
+        if route is None:
+            return jax.lax.platform_dependent(p, x, cuda=kernel, default=xla)
+        return (kernel if route else xla)(p, x)
+
+    return apply
+
+
+_sym_matvec = _routed(_sym_kernel_matvec, _sym_xla_matvec)
+_sym_matmat = _routed(_sym_kernel_matmat, _sym_xla_matmat)
 
 
 def sym_bsr_from_bsr(bsr: BSRMatrix, *, check: bool = False, atol: float = 0.0) -> SymBSRMatrix:
@@ -313,9 +342,9 @@ def sym_bsr_from_bsr(bsr: BSRMatrix, *, check: bool = False, atol: float = 0.0) 
     ud = np.take_along_axis(data, order[:, :, None, None], axis=1).copy()
     ud[~valid] = 0
     uc = np.where(valid, np.take_along_axis(cols, order, axis=1), 0).astype(np.int32)
-    # band reach (block units): max col − row over REAL upper slots — the
-    # streaming-kernel eligibility metadata (padding slots point at col 0
-    # and would give a negative reach, masked out here)
+    # band reach (block units): max col − row over REAL upper slots
+    # (padding slots point at col 0 and would give a negative reach,
+    # masked out here)
     reach = int((np.where(valid, uc, 0) - rows).max(initial=0))
     return SymBSRMatrix(
         jnp.asarray(diag), jnp.asarray(ud), jnp.asarray(uc), bsr.shape, max(reach, 0)

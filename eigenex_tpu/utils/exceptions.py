@@ -2,8 +2,8 @@
 
 The reference defines ``RuntimeException`` (util.hpp:161),
 ``LanczosException`` (lanczos.hpp:90, aliased as ``ArnoldiException``
-arnoldi.hpp:45) and ``VectorMapException`` (vector_map.hpp:18).  In the
-TPU build, exceptions are raised only at trace time (shape/config
+arnoldi.hpp:45) and ``VectorMapException`` (vector_map.hpp:18).  Under
+jit, exceptions are raised only at trace time (shape/config
 validation); in-kernel numerical failures (breakdown, non-convergence)
 are carried as status flags in the solver state and surfaced in results,
 because data-dependent control flow cannot raise from inside ``jit``.

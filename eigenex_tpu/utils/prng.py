@@ -1,6 +1,6 @@
 """Random generation for vectors, matrices and tensors.
 
-TPU-native re-design of the reference's C++11-style distribution objects:
+JAX-native re-design of the reference's C++11-style distribution objects:
 ``ComplexUniformDistribution``/``ComplexNormalDistribution`` and the
 real/complex dispatch traits (util.hpp:49-158), ``VectorDistribution``
 with its ``normalize`` flag (random.hpp:74-112), ``MatrixDistribution``
@@ -90,8 +90,8 @@ def random_orthogonal(key, rows, cols=None, dtype=jnp.float32):
     """Random matrix with orthonormal columns (unitary if square).
 
     The reference builds this by Gram-Schmidt over random columns
-    (random.hpp:144-150); on TPU a QR of a random Gaussian matrix is the
-    numerically stable, MXU-friendly equivalent, with the sign fix
+    (random.hpp:144-150); here a QR of a random Gaussian matrix is the
+    numerically stable, matmul-friendly equivalent, with the sign fix
     (diag(R) made positive) giving the Haar distribution.
     """
     cols = rows if cols is None else cols

@@ -1,7 +1,7 @@
 """Profiling hooks.
 
-The reference has no tracing/profiling at all (SURVEY.md §5); the TPU
-build hooks into ``jax.profiler``: :func:`profile_trace` wraps a code
+The reference has no tracing/profiling at all (SURVEY.md §5); this
+library hooks into ``jax.profiler``: :func:`profile_trace` wraps a code
 region in a TensorBoard-compatible device trace, :func:`annotate` names
 host regions so they line up with the XLA timeline (the solver chunk
 bodies carry ``jax.named_scope`` labels: ``lanczos/matvec``,

@@ -1,6 +1,6 @@
 """Dtype-dependent default tolerances.
 
-TPU-native re-design of the reference's ``DefaultTolerance`` trait
+JAX-native re-design of the reference's ``DefaultTolerance`` trait
 (reference: include/cmpt/eigen_ex/lanczos.hpp:63-83), which defaults to
 1e-12 for double-precision scalar types and 1e-4 for single precision.
 We mirror that behavior keyed on the JAX dtype of the problem, including
@@ -39,7 +39,7 @@ def default_tolerance(dtype) -> float:
 
     Mirrors the reference's dtype dispatch (lanczos.hpp:67-78):
     1e-12 for float64/complex128, 1e-4 for float32/complex64.  bfloat16
-    (TPU-native, no reference analog) gets 1e-2.
+    (no reference analog) gets 1e-2.
     """
     rdt = real_dtype_of(dtype)
     if rdt == np.float64:

@@ -1,6 +1,6 @@
 """Convergence tracing and event logging.
 
-TPU-native re-design of the reference's observability hooks: the
+JAX-native re-design of the reference's observability hooks: the
 severity-tagged string event log ``log_`` with ``ERROR/WARN/INFO/DEBUG``
 headers and ``hasERROR()/hasWARN()`` queries (lanczos.hpp:486-489,636,
 903-922) and the per-eigenvalue Ritz history ``convergenceLog_``

@@ -26,8 +26,7 @@ print("dominant eigenvalues (|λ| desc):")
 for lam in res.eigenvalues:
     print(f"  {lam:.10f}  |λ| = {abs(lam):.10f}")
 
-# the acceptance identity of the reference sample (combined on host —
-# complex arithmetic is unsupported on some TPU backends)
+# the acceptance identity of the reference sample (combined on host)
 P = np.asarray(res.eigenvectors)
 D = np.asarray(res.eigenvalues)
 AP = np.asarray(op.matmat(jnp.asarray(P.real, A.dtype))) + 1j * np.asarray(

@@ -7,15 +7,7 @@ import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
 
-import jax
 import numpy as np
-
-# many small per-sector eigenproblems: CPU avoids one TPU recompile per
-# sector dimension
-try:
-    jax.config.update("jax_default_device", jax.devices("cpu")[0])
-except Exception:
-    pass
 
 import eigenex_tpu as ex
 from eigenex_tpu.block.hamiltonians import heisenberg_block_hamiltonian

@@ -1,10 +1,9 @@
-"""Hybrid-precision pipeline: iterate on the TPU in f32, refine on the
-host in f64 to reference-grade (1e-10) eigenvalues.
+"""Hybrid-precision pipeline: iterate on the device in f32, refine on
+the host in f64 to reference-grade (1e-10) eigenvalues.
 
-This is the production recipe for TPU hardware (which has no native
-f64): the Krylov heavy lifting (SpMV + CGS2, ~all the FLOPs) runs on
-the chip; the final Rayleigh/inverse-iteration polish costs a handful
-of host SpMVs.
+The Krylov heavy lifting (SpMV + CGS2, ~all the FLOPs) runs on the
+device at f32 bandwidth; the final Rayleigh/inverse-iteration polish
+costs a handful of host SpMVs.
 """
 
 import os as _os
@@ -36,7 +35,7 @@ for off in (1, 7, 64):
     for i in range(n - off):
         b.append(i, i + off, vals[i])
         b.append(i + off, i, vals[i])
-# host-resident f64 triplets (a TPU device array would truncate to f32)
+# host-resident f64 triplets (a device array would truncate to f32)
 coo64 = b.build(to_device=False)
 
 coo32 = ex.COOMatrix(
@@ -69,4 +68,4 @@ print(f"  |err| f32 Lanczos       : {np.abs(np.asarray(res.eigenvalues) - ref)}"
 print(f"  |err| Rayleigh refine   : {np.abs(lam_r - ref)}")
 print(f"  |err| inverse iteration : {np.abs(lam_ii - ref)}  (residuals {resid_ii})")
 assert np.abs(lam_ii - ref).max() < 1e-10, "hybrid pipeline must reach 1e-10"
-print("PASS: 1e-10-grade eigenvalues from f32 TPU iteration + f64 host polish")
+print("PASS: 1e-10-grade eigenvalues from f32 device iteration + f64 host polish")

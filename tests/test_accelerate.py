@@ -558,9 +558,9 @@ class TestAccelerateMeshComposition:
     def _far_reach_triplets(self, n=2000, bw=100, per_row=6, seed=33):
         """Shuffled banded symmetric operator with DYADIC values (exact
         in f32 storage and f64 iteration).  At block=8 the recovered
-        band reach is ~bw/8 ≈ 19 block rows — far past the smallest
-        streaming strip (8), i.e. the ring-kernel shape class — while
-        fitting one virtual-8 mesh panel."""
+        band reach is ~bw/8 ≈ 19 block rows — a far reach like the
+        packed Heisenberg sectors' — while fitting one virtual-8 mesh
+        panel."""
         rng = np.random.default_rng(seed)
         r = np.repeat(np.arange(n), per_row)
         c = r + rng.integers(1, bw, size=len(r))
@@ -578,8 +578,8 @@ class TestAccelerateMeshComposition:
 
         trip = self._far_reach_triplets()
         acc = accelerate(trip, block=8, dtype=jnp.float64)
-        # ring-regime shape: packed reach well past the smallest strip,
-        # but within one 8-shard mesh panel
+        # far-reach shape: packed reach past 8 block rows, but within one
+        # 8-shard mesh panel
         nbr = acc.matrix.n_block_rows
         assert 8 < acc.stats["band_reach"] <= nbr // 8
         assert acc.shape[0] > acc.n_work  # block padding present

@@ -23,7 +23,7 @@ pytestmark = pytest.mark.baseline
 # ---------------------------------------------------------------------------
 def test_config1_laplacian_lowest5_1e4():
     """FULL SIZE n=10^4.  The low end is clustered at relative gaps
-    ~1e-7 (plain Lanczos needs thousands of iterations), so the TPU-native
+    ~1e-7 (plain Lanczos needs thousands of iterations), so the device
     route is shift-invert with the EXACT tridiagonal direct solve
     (lax.linalg.tridiagonal_solve) — a handful of outer iterations."""
     from eigenex_tpu.solvers.direct import tridiagonal_shift_invert_operator
@@ -179,7 +179,7 @@ def test_config5_distributed_halo_shift_invert():
     # sigma just below lambda_1 = 3.76e-5: theta_1/theta_2 well separated
     # (a far-away sigma clusters the thetas and stalls the outer Lanczos)
     sigma = -1e-4
-    op = bsr.as_linear_operator(use_pallas=False)
+    op = bsr.as_linear_operator()
     state = init_lanczos_state(op, 32, seed=0)
     state = distributed_lanczos_steps(
         bsr, state, 32, mesh,

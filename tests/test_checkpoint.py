@@ -89,7 +89,7 @@ def test_distributed_resume_matches_straight(tmp_path):
     A[np.abs(A) < 1.2] = 0.0
     np.fill_diagonal(A, np.arange(n, dtype=np.float64))
     bsr = pad_bsr_for_mesh(bsr_from_dense(jnp.asarray(A), (4, 4)), 8)
-    op = bsr.as_linear_operator(use_pallas=False)
+    op = bsr.as_linear_operator()
 
     from eigenex_tpu.solvers.lanczos import init_lanczos_state
 

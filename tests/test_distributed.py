@@ -84,7 +84,7 @@ class TestDistributedLanczos:
         """Same state in ⇒ bit-comparable state out (the determinism test
         that replaces race detection, SURVEY.md §5)."""
         bsr = pad_bsr_for_mesh(laplacian_bsr(64, 4), 8)
-        op = bsr.as_linear_operator(use_pallas=False)
+        op = bsr.as_linear_operator()
         v0 = np.random.default_rng(2).standard_normal(bsr.shape[1])
         s0 = init_lanczos_state(op, 20, v0=jnp.asarray(v0))
         s_ref = lanczos_steps(op, s0, 12)
@@ -120,7 +120,7 @@ class TestDistributedLanczos:
 class TestHaloLanczos:
     def test_halo_mode_matches_allgather(self, mesh):
         bsr = pad_bsr_for_mesh(laplacian_bsr(64, 4), 8)
-        op = bsr.as_linear_operator(use_pallas=False)
+        op = bsr.as_linear_operator()
         v0 = np.random.default_rng(5).standard_normal(bsr.shape[1])
         s0 = init_lanczos_state(op, 16, v0=jnp.asarray(v0))
         s_ag = distributed_lanczos_steps(bsr, s0, 10, mesh, matvec_mode="allgather")
@@ -190,7 +190,7 @@ class TestDistributedShiftInvert:
         the ground state."""
         n = 64
         bsr = pad_bsr_for_mesh(laplacian_bsr(n, 4), 8)
-        op = bsr.as_linear_operator(use_pallas=False)
+        op = bsr.as_linear_operator()
         exact0 = 2 - 2 * np.cos(np.pi / (n + 1))
         sigma = -0.5  # below the spectrum → (A−σI) positive definite
         s0 = init_lanczos_state(op, 24, seed=0)
@@ -258,7 +258,8 @@ def test_distributed_krylov_schur(mesh):
 
 
 # ---------------------------------------------------------------------------
-# Round-2: colsplit (psum_scatter) matvec mode + Pallas local SpMV
+# Round-2: colsplit (psum_scatter) matvec mode; the GPU kernel as the
+# sym_halo local SpMV
 # (SURVEY.md section 5's reduce_scatter mandate; VERDICT round-1 item 6)
 # ---------------------------------------------------------------------------
 class TestColsplitMatvec:
@@ -306,7 +307,7 @@ class TestColsplitMatvec:
         from eigenex_tpu.solvers.lanczos import init_lanczos_state
 
         bsr = pad_bsr_for_mesh(laplacian_bsr(64, 4), 8)
-        op = bsr.as_linear_operator(use_pallas=False)
+        op = bsr.as_linear_operator()
         s0 = init_lanczos_state(op, 24, seed=3)
         sa = distributed_lanczos_steps(bsr, s0, 24, mesh, matvec_mode="allgather")
         sc = distributed_lanczos_steps(bsr, s0, 24, mesh, matvec_mode="colsplit")
@@ -329,29 +330,36 @@ class TestColsplitMatvec:
 
 
 class TestPallasLocalSpMV:
-    def test_pallas_interpret_matches_xla_under_shard_map(self, mesh):
-        # Pallas kernel structural constraints: bm%8==0, bn%128==0,
-        # nbr_local%8==0 → 64 block rows of (8,128) over 8 devices
-        from eigenex_tpu.parallel.distributed import distributed_lanczos_steps
-        from eigenex_tpu.solvers.lanczos import init_lanczos_state
+    """The half-traffic GPU kernel (Pallas interpret mode) as the
+    shard-local SpMV of the sym_halo mode, under shard_map on the
+    8-device mesh, against the XLA local path."""
 
-        n = 64 * 8  # 64 block rows of bm=8
-        r = np.arange(n)
-        rows = np.concatenate([r, r[:-1], r[1:]])
-        cols = np.concatenate([r, r[1:], r[:-1]])
-        vals = np.concatenate(
-            [2 * np.ones(n), -np.ones(n - 1), -np.ones(n - 1)]
-        ).astype(np.float32)
-        bsr = bsr_from_coo_arrays(rows, cols, vals, (n, n), (8, 128))
-        bsr = pad_bsr_for_mesh(bsr, 8)
-        op = bsr.as_linear_operator(use_pallas=False)
-        s0 = init_lanczos_state(op, 8, seed=0)
-        sx = distributed_lanczos_steps(bsr, s0, 8, mesh, use_pallas=False)
-        sp = distributed_lanczos_steps(bsr, s0, 8, mesh, use_pallas="interpret")
-        np.testing.assert_allclose(
-            np.asarray(sx.alpha), np.asarray(sp.alpha), atol=1e-5
-        )
+    @staticmethod
+    def _laplacian_f32():
+        # 4 block rows of 16x16 per device: the kernel's square
+        # power-of-two blocks, and a band that crosses every shard edge
+        return pad_bsr_for_mesh(laplacian_bsr(8 * 4 * 16, 16, np.float32), 8)
+
+    def test_pallas_interpret_matches_xla_under_shard_map(self, mesh):
+        bsr = self._laplacian_f32()
+        s0 = init_lanczos_state(bsr.as_linear_operator(), 8, seed=0)
+        kw = dict(matvec_mode="sym_halo")
+        sx = distributed_lanczos_steps(bsr, s0, 8, mesh, use_pallas=False, **kw)
+        sp = distributed_lanczos_steps(bsr, s0, 8, mesh, use_pallas="interpret", **kw)
+        np.testing.assert_allclose(np.asarray(sx.alpha), np.asarray(sp.alpha), atol=1e-5)
         np.testing.assert_allclose(np.asarray(sx.beta), np.asarray(sp.beta), atol=1e-5)
+
+    def test_pallas_interpret_spmm_under_shard_map(self, mesh):
+        from eigenex_tpu.parallel import mesh_operator
+
+        bsr = self._laplacian_f32()
+        X = jnp.asarray(np.random.default_rng(3).standard_normal((bsr.shape[0], 5)), jnp.float32)
+        ox = mesh_operator(bsr, mesh, matvec_mode="sym_halo")
+        ok = mesh_operator(bsr, mesh, matvec_mode="sym_halo", use_pallas="interpret")
+        np.testing.assert_allclose(np.asarray(ok.matmat(X)), np.asarray(ox.matmat(X)), atol=1e-5)
+        np.testing.assert_allclose(
+            np.asarray(ok.matvec(X[:, 0])), np.asarray(ox.matvec(X[:, 0])), atol=1e-5
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -377,7 +385,7 @@ class TestSymHalo:
         from eigenex_tpu.solvers.lanczos import init_lanczos_state, lanczos_steps
 
         bsr, A = self._sym_banded()
-        op = bsr.as_linear_operator(use_pallas=False)
+        op = bsr.as_linear_operator()
         m = 20
         s_ref = lanczos_steps(op, init_lanczos_state(op, m, seed=0), m)
         s_dist = distributed_lanczos_steps(

@@ -2,7 +2,7 @@
 
 The reference treats numerical failure as first-class (initial-vector
 breakdown lanczos.hpp:316-321, beta-breakdown :433-437, Arnoldi residue
-:277-288 all terminate cleanly).  On TPU the recurrence runs under jit
+:277-288 all terminate cleanly).  The recurrence runs under jit
 where exceptions can't be raised, so failure is a carried flag: a
 non-finite alpha/beta/Hessenberg column stops iteration and surfaces
 ``termination="numerical_failure"`` + an ERROR trace event, never

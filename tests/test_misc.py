@@ -70,42 +70,58 @@ def test_operator_call_and_matmul_array(key):
 
 
 class TestBenchtime:
-    """The shared benchmark timing protocol (utils/benchtime.py) —
-    slope math, sync, and plausibility clamping."""
+    """The shared benchmark helpers (utils/benchtime.py): the peak table,
+    the device report, block_until_ready timing, and the compile-cache
+    placement."""
 
-    def test_chain_slope_recovers_known_cost(self):
+    def test_peak_table_known_kind(self):
+        from eigenex_tpu.utils.benchtime import device_peaks
+
+        pk = device_peaks("NVIDIA H100 80GB HBM3")
+        assert pk["hbm_bytes_per_s"] == 3.35e12 and pk["bf16_flops_per_s"] == 989e12
+        assert pk["source"]
+
+    def test_peak_table_unknown_kind_is_an_error(self):
+        from eigenex_tpu.utils.benchtime import device_peaks
+
+        with pytest.raises(KeyError):
+            device_peaks("cpu")
+
+    def test_device_report_refuses_cpu(self):
+        from eigenex_tpu.utils.benchtime import device_report
+
+        with pytest.raises(RuntimeError, match="no GPU"):
+            device_report()
+
+    def test_timed_median_blocks_and_counts(self):
         import jax.numpy as jnp
 
-        from eigenex_tpu.utils.benchtime import chain_slope
+        from eigenex_tpu.utils.benchtime import timed_median
 
-        n = 64
-        A = jnp.eye(n) * 0.5
+        calls = []
+        med, ts = timed_median(lambda: calls.append(1) or jnp.ones(8) * 2, reps=4, warmup=2)
+        assert len(calls) == 6 and len(ts) == 4 and med > 0
 
-        def mv(p, x):
-            return p @ x
+    def test_compile_cache_from_environment(self, monkeypatch, tmp_path):
+        import jax
 
-        x = jnp.ones((n,), jnp.float64)
-        per, stats = chain_slope(mv, A, x, k_lo=2, k_hi=10, reps=3)
-        # on CPU the tiny matmul takes SOME positive time; the protocol
-        # must return either a positive slope or an explicit
-        # "unresolvable" flag — never a negative rate
-        assert (per is None and stats.get("unresolvable")) or per > 0
-        assert stats["reps"] == 3 and stats["k_hi"] == 10
+        from eigenex_tpu.utils.benchtime import configure_compile_cache
 
-    def test_clamp_rejects_superluminal(self):
-        from eigenex_tpu.utils.benchtime import clamp_to_roofline, plausibility_floor
+        before = jax.config.jax_compilation_cache_dir
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+        assert configure_compile_cache(str(tmp_path)) == str(tmp_path / "env")
+        assert jax.config.jax_compilation_cache_dir == before  # nothing set in code
 
-        gb = 8 * 10**9
-        floor = plausibility_floor(gb)
-        t, clamped = clamp_to_roofline(floor / 2, gb)
-        assert clamped and t == floor
-        t2, clamped2 = clamp_to_roofline(floor * 3, gb)
-        assert not clamped2 and t2 == floor * 3
+    def test_compile_cache_default_under_root(self, monkeypatch, tmp_path):
+        import jax
 
-    def test_force_sync_accepts_shapes(self):
-        import jax.numpy as jnp
+        from eigenex_tpu.utils.benchtime import configure_compile_cache
 
-        from eigenex_tpu.utils.benchtime import force_sync
-
-        force_sync(jnp.ones((8, 8)))
-        force_sync((jnp.ones(4), jnp.ones(4)))
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            path = configure_compile_cache(str(tmp_path))
+            assert path == str(tmp_path / ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == path
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)

@@ -1,12 +1,16 @@
-"""Pallas SpMV kernel tests in interpreter mode (CPU) — the XLA BSR path
-is the oracle; the real-TPU timing runs live in bench.py."""
+"""Block-sparse SpMV/SpMM: the symmetric GPU kernel in Pallas interpret
+mode against the XLA formulation and the dense matrix, the backend rule
+that picks between them, and the general BSR XLA path across block
+shapes."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from eigenex_tpu.ops.pallas_spmv import bsr_matmat_pallas, bsr_matvec_pallas
+from eigenex_tpu.ops.pallas_spmv import sym_bsr_matmat_pallas, sym_bsr_matvec_pallas
 from eigenex_tpu.sparse import bsr_from_coo_arrays
+from eigenex_tpu.sparse.sym_bsr import SymBSRMatrix, kernel_route, sym_bsr_from_bsr
 
 
 def banded_bsr(nbr, bm, dtype=np.float32, seed=0):
@@ -24,46 +28,6 @@ def banded_bsr(nbr, bm, dtype=np.float32, seed=0):
     return bsr_from_coo_arrays(
         np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), (n, n), (bm, bm)
     )
-
-
-class TestPallasSpMV:
-    def test_matvec_interpret_matches_xla(self):
-        bsr = banded_bsr(16, 128)
-        x = jnp.asarray(np.random.default_rng(1).standard_normal(bsr.shape[1]).astype(np.float32))
-        y_ref = bsr.matvec(x)
-        y = bsr_matvec_pallas(bsr, x, interpret=True)
-        np.testing.assert_allclose(y, y_ref, rtol=2e-5, atol=1e-4)
-
-    def test_matmat_interpret_matches_xla(self):
-        bsr = banded_bsr(8, 128)
-        X = jnp.asarray(
-            np.random.default_rng(2).standard_normal((bsr.shape[1], 8)).astype(np.float32)
-        )
-        y_ref = bsr.matmat(X)
-        y = bsr_matmat_pallas(bsr, X, interpret=True)
-        np.testing.assert_allclose(y, y_ref, rtol=2e-5, atol=1e-4)
-
-    def test_fallback_f64(self):
-        """f64 silently takes the XLA path (TPU MXU is f32/bf16)."""
-        bsr = banded_bsr(4, 8, dtype=np.float64)
-        x = jnp.asarray(np.random.default_rng(3).standard_normal(bsr.shape[1]))
-        np.testing.assert_allclose(bsr_matvec_pallas(bsr, x), bsr.matvec(x), atol=1e-12)
-
-    def test_fallback_odd_rows(self):
-        """Row counts that violate the tile rules fall back cleanly."""
-        bsr = banded_bsr(3, 128)  # 3 % 8 != 0
-        x = jnp.asarray(np.random.default_rng(4).standard_normal(bsr.shape[1]).astype(np.float32))
-        np.testing.assert_allclose(
-            bsr_matvec_pallas(bsr, x), bsr.matvec(x), rtol=2e-5, atol=1e-4
-        )
-
-# ---------------------------------------------------------------------------
-# Symmetric (half-traffic) SpMV: SymBSRMatrix + sym_bsr_matvec_pallas
-# (round-2 kernel rework — measured 531 Gnnz/s effective bf16 on v5e vs
-# 374 for the best full-storage XLA path)
-# ---------------------------------------------------------------------------
-from eigenex_tpu.ops.pallas_spmv import sym_bsr_matvec_pallas
-from eigenex_tpu.sparse.sym_bsr import SymBSRMatrix, sym_bsr_from_bsr
 
 
 def sym_banded_bsr(nbr, bm, dtype=np.float32, seed=0):
@@ -112,42 +76,6 @@ class TestSymBSR:
         X = jnp.asarray(np.random.default_rng(2).standard_normal((bsr.shape[1], 5)).astype(np.float32))
         np.testing.assert_allclose(sym.matmat(X), bsr.matmat(X), rtol=2e-5, atol=1e-4)
 
-    def test_pallas_interpret_matches_xla(self):
-        bsr = sym_banded_bsr(16, 128)
-        sym = sym_bsr_from_bsr(bsr)
-        x = jnp.asarray(np.random.default_rng(3).standard_normal(bsr.shape[1]).astype(np.float32))
-        y = sym_bsr_matvec_pallas(sym, x, interpret=True)
-        np.testing.assert_allclose(y, bsr.matvec(x), rtol=2e-5, atol=1e-4)
-
-    def test_spmm_pallas_interpret_matches_full(self):
-        from eigenex_tpu.ops.pallas_spmv import sym_bsr_matmat_pallas
-
-        bsr = sym_banded_bsr(16, 128)
-        sym = sym_bsr_from_bsr(bsr)
-        for p in (5, 8, 16):  # pad path (5), exact tile (8), two tiles (16)
-            X = jnp.asarray(
-                np.random.default_rng(10 + p)
-                .standard_normal((bsr.shape[1], p))
-                .astype(np.float32)
-            )
-            Y = sym_bsr_matmat_pallas(sym, X, interpret=True)
-            assert Y.shape == (bsr.shape[0], p)
-            np.testing.assert_allclose(Y, bsr.matmat(X), rtol=2e-5, atol=1e-4)
-
-    def test_spmm_pallas_interpret_bf16(self):
-        from eigenex_tpu.ops.pallas_spmv import sym_bsr_matmat_pallas
-
-        bsr = sym_banded_bsr(8, 128)
-        sym = sym_bsr_from_bsr(bsr).astype(jnp.bfloat16)
-        X = jnp.asarray(
-            np.random.default_rng(7).standard_normal((bsr.shape[1], 8)).astype(np.float32)
-        )
-        Y = sym_bsr_matmat_pallas(sym, X, interpret=True)
-        assert Y.dtype == jnp.float32
-        ref = sym.astype(jnp.float32)._xla_matmat(X)
-        scale = float(jnp.max(jnp.abs(ref)))
-        np.testing.assert_allclose(Y, ref, atol=2e-2 * scale)
-
     def test_hermitian_complex_xla(self):
         rng = np.random.default_rng(4)
         n = 24
@@ -175,7 +103,7 @@ class TestSymBSR:
         from eigenex_tpu.solvers.lanczos import LanczosEigenSolver, LanczosOptions
 
         res = LanczosEigenSolver(
-            sym.as_linear_operator(use_pallas=False),
+            sym.as_linear_operator(),
             LanczosOptions(max_eigenvalues=2, tolerance=1e-13, max_subspace=32),
         ).compute()
         ref = np.linalg.eigvalsh(np.asarray(bsr.to_dense()))
@@ -191,249 +119,217 @@ class TestSymBSR:
         with pytest.raises(EigenexError):
             sym_bsr_from_bsr(bsr, check=True)
 
-    def test_vmem_guard_falls_back(self):
-        # joint stream+panel budget: huge resident panels -> 0 (XLA path)
-        from eigenex_tpu.ops.pallas_spmv import _pick_sym_rows_per
-
-        assert _pick_sym_rows_per(2048, 1, 128, 128, 2) == 64
-        assert _pick_sym_rows_per(2048, 1, 128, 128, 2, resident_bytes=8 * 16_800_000) == 0
-        # mid-size: picker shrinks R rather than overflowing
-        r = _pick_sym_rows_per(8192, 1, 128, 128, 2, resident_bytes=8 * 1_000_000)
-        assert 0 < r < 64
-
-
-# ---------------------------------------------------------------------------
-# Streaming symmetric kernel (round 3): no VMEM size cap for BANDED
-# symmetric operators — strip-windowed x, carry-based y scatter between
-# strips.  Interpret mode; forced via rows_per=0 (resident path disabled)
-# so the dispatcher exercises the streaming route regardless of size.
-# ---------------------------------------------------------------------------
 class TestSymStreamKernel:
+    """Band-reach metadata carried through the pack (the mesh split reads
+    it)."""
+
     def test_band_reach_metadata(self):
         sym = sym_bsr_from_bsr(sym_banded_bsr(6, 8))
         assert sym.band_reach == 1  # block-tridiagonal: upper reach 1
         assert sym.astype(jnp.bfloat16).band_reach == 1
 
-    def test_strip_pick_respects_reach_and_divisor(self):
-        from eigenex_tpu.ops.pallas_spmv import _pick_sym_strip
 
-        # huge nbr: resident kernel impossible, stream still finds a strip
-        s = _pick_sym_strip(131072, 1, 128, 128, 2, reach=1)
-        assert s > 0 and 131072 % s == 0 and s >= 1
-        # reach larger than every fitting strip -> 0
-        assert _pick_sym_strip(131072, 1, 128, 128, 2, reach=100000) == 0
-        # strip must divide nbr
-        assert _pick_sym_strip(9973, 1, 128, 128, 2, reach=1) == 0  # prime
+def far_reach_sym(nbr, bm, reach, seed=0):
+    """Symmetric matrix whose upper blocks sit at distance `reach` plus
+    a near band; the last `reach` block rows hold padding slots."""
+    rng = np.random.default_rng(seed)
+    n = nbr * bm
+    rows, cols, vals = [], [], []
+    # block-diagonal + near band + far couplings at `reach`
+    for br in range(nbr):
+        r0 = br * bm
+        d = rng.standard_normal((bm, bm))
+        d = (d + d.T) / 2
+        rr, cc = np.nonzero(np.abs(d) > 1.2)  # sparse-ish blocks
+        rows.append(r0 + rr); cols.append(r0 + cc); vals.append(d[rr, cc])
+        for dist in (1, reach):
+            if br + dist < nbr:
+                o = rng.standard_normal((bm, bm))
+                rr, cc = np.nonzero(np.abs(o) > 1.4)
+                rows.append(r0 + rr); cols.append(r0 + dist * bm + cc)
+                vals.append(o[rr, cc])
+                rows.append(r0 + dist * bm + cc); cols.append(r0 + rr)
+                vals.append(o[rr, cc])
+    r = np.concatenate(rows); c = np.concatenate(cols); v = np.concatenate(vals)
+    # merge duplicate symmetric diag entries
+    key = r.astype(np.int64) * n + c
+    order = np.argsort(key)
+    key, v = key[order], v[order]
+    uniq, start = np.unique(key, return_index=True)
+    v = np.add.reduceat(v, start)
+    r, c = (uniq // n).astype(np.int64), (uniq % n).astype(np.int64)
+    bsr = bsr_from_coo_arrays(r, c, v.astype(np.float32), (n, n), (bm, bm))
+    return sym_bsr_from_bsr(bsr)
 
-    def test_stream_matches_xla_multi_strip(self):
-        from eigenex_tpu.ops.pallas_spmv import _sym_stream_call
 
-        bsr = sym_banded_bsr(32, 128)
-        sym = sym_bsr_from_bsr(bsr)
+def _dense(sym):
+    return np.asarray(sym.astype(jnp.float32).to_dense(), np.float64)
+
+
+#: (name, factory) of the kernel test operators, all with 16×16 blocks:
+#: a near band with no padding slots, and far couplings at block
+#: distance 3 and 7 whose rows hold padding slots; 13 and 32 block rows
+_KERNEL_OPS = {
+    "near": lambda: sym_bsr_from_bsr(sym_banded_bsr(13, 16)),
+    "far3": lambda: far_reach_sym(32, 16, 3),
+    "far7": lambda: far_reach_sym(32, 16, 7, seed=3),
+}
+
+
+class TestSymKernelInterpret:
+    """The half-traffic Pallas/Triton kernel in interpret mode against
+    the XLA formulation and the dense matrix."""
+
+    @pytest.mark.parametrize("p", [None, 1, 5, 8, 64])
+    @pytest.mark.parametrize("op", sorted(_KERNEL_OPS))
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    def test_matches_xla_and_dense(self, dtype, op, p):
+        sym = _KERNEL_OPS[op]().astype(dtype)
+        n = sym.shape[0]
+        rng = np.random.default_rng(11)
+        x = rng.standard_normal(n if p is None else (n, p)).astype(np.float32)
+        if p is None:
+            got = sym_bsr_matvec_pallas(sym, jnp.asarray(x), interpret=True)
+            xla = sym._xla_matvec(jnp.asarray(x))
+        else:
+            got = sym_bsr_matmat_pallas(sym, jnp.asarray(x), interpret=True)
+            xla = sym._xla_matmat(jnp.asarray(x))
+        assert got.shape == x.shape and got.dtype == jnp.float32
+        want = _dense(sym) @ x.astype(np.float64)
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=1e-5 * scale)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(xla), rtol=0, atol=1e-5 * scale)
+
+    def test_padding_slots_are_skipped_not_applied(self):
+        """A padding slot points at column 0 with zero data; the kernel
+        skips it (c <= r), so even garbage there changes nothing."""
+        sym = far_reach_sym(32, 16, 3)
+        uc = np.asarray(sym.upper_cols)
+        pad = uc <= np.arange(uc.shape[0])[:, None]
+        assert pad.any()
+        ud = np.asarray(sym.upper_data).copy()
+        ud[pad] = 1e3
+        dirty = SymBSRMatrix(
+            sym.diag_data, jnp.asarray(ud), sym.upper_cols, sym.shape, sym.band_reach
+        )
+        x = jnp.asarray(np.random.default_rng(2).standard_normal(sym.shape[0]), jnp.float32)
+        np.testing.assert_allclose(
+            sym_bsr_matvec_pallas(dirty, x, interpret=True),
+            sym_bsr_matvec_pallas(sym, x, interpret=True),
+            rtol=1e-6, atol=1e-5,
+        )
+
+
+class _FakeDevice:
+    def __init__(self, platform):
+        self.platform = platform
+
+
+class _FakeArray:
+    def __init__(self, platform):
+        self._platform = platform
+
+    def devices(self):
+        return {_FakeDevice(self._platform)}
+
+
+class _FakeSym:
+    """Just what the backend rule reads: the blocks' devices, dtype and
+    block shape."""
+
+    def __init__(self, platform, dtype, bm):
+        self.upper_data = _FakeArray(platform)
+        self.dtype = jnp.dtype(dtype)
+        self.block_shape = (bm, bm)
+
+
+class TestBackendRule:
+    """:func:`kernel_route`: the GPU kernel for f32/bf16 storage committed
+    to a CUDA device, XLA for every other operand — by choice, not as a
+    fallback."""
+
+    @pytest.mark.parametrize(
+        "platform,dtype,bm,want",
+        [
+            ("gpu", jnp.float32, 128, True),
+            ("gpu", jnp.bfloat16, 128, True),
+            ("gpu", jnp.float32, 16, True),
+            ("gpu", jnp.float64, 128, False),
+            ("gpu", jnp.complex64, 128, False),
+            ("gpu", jnp.float32, 8, False),
+            ("gpu", jnp.float32, 24, False),
+            ("cpu", jnp.float32, 128, False),
+            ("cpu", jnp.bfloat16, 128, False),
+        ],
+    )
+    def test_route(self, platform, dtype, bm, want):
+        assert kernel_route(_FakeSym(platform, dtype, bm)) is want
+
+    def test_cpu_container_routes_xla(self):
+        sym = sym_bsr_from_bsr(sym_banded_bsr(4, 16))
+        assert not kernel_route(sym)
+        op = sym.as_linear_operator()
+        x = jnp.asarray(np.random.default_rng(5).standard_normal(sym.shape[0]), jnp.float32)
+        np.testing.assert_array_equal(op.matvec(x), sym._xla_matvec(x))
+
+    def test_traced_container_routes_xla(self):
+        """Traced, the route is staged; lowered for the CPU it is XLA's."""
+        sym = sym_bsr_from_bsr(sym_banded_bsr(4, 16))
+        seen = []
+        jax.jit(lambda s: seen.append(kernel_route(s)) or s.diag_data.sum())(sym)
+        assert seen == [None]
+        x = jnp.asarray(np.random.default_rng(5).standard_normal(sym.shape[0]), jnp.float32)
+        f = jax.jit(lambda s, x: s.matvec(x))
+        np.testing.assert_array_equal(f(sym, x), sym._xla_matvec(x))
+        assert "sym_bsr_spmv" not in f.lower(sym, x).as_text()
+
+    @pytest.mark.parametrize(
+        "method,kernel", [("matvec", "sym_bsr_spmv"), ("matmat", "sym_bsr_spmm")]
+    )
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16, jnp.float64])
+    def test_jitted_spmv_lowers_kernel_for_cuda(self, method, kernel, dtype):
+        """``A @ x`` inside a user's jit compiles the kernel when lowered
+        for CUDA — f32/bf16 storage only — and not XLA's scatter-add."""
+        sym = sym_bsr_from_bsr(sym_banded_bsr(4, 16)).astype(dtype)
+        n = sym.shape[0]
+        x = jnp.ones((n,) if method == "matvec" else (n, 3), jnp.float32)
+        f = jax.jit(lambda s, x: getattr(s, method)(x))
+        text = f.trace(sym, x).lower(lowering_platforms=("cuda",)).as_text()
+        fits = dtype != jnp.float64
+        assert (kernel in text) is fits
+        assert ("stablehlo.scatter" in text) is not fits
+
+    @pytest.mark.parametrize("method", ["matvec", "matmat"])
+    def test_interpret_operator_runs_kernel(self, method):
+        sym = sym_bsr_from_bsr(sym_banded_bsr(6, 16)).astype(jnp.bfloat16)
+        op = sym.as_linear_operator(use_pallas="interpret")
+        rng = np.random.default_rng(6)
         x = jnp.asarray(
-            np.random.default_rng(21).standard_normal(bsr.shape[1]).astype(np.float32)
+            rng.standard_normal((sym.shape[0],) if method == "matvec" else (sym.shape[0], 3)),
+            jnp.float32,
         )
-        ref = bsr.matvec(x)
-        for strip in (8, 16, 32):  # 4, 2, 1 grid programs — carry exercised
-            y = _sym_stream_call(sym, x, strip, interpret=True)
-            np.testing.assert_allclose(y, ref, rtol=2e-5, atol=1e-4)
-
-    def test_stream_bf16(self):
-        from eigenex_tpu.ops.pallas_spmv import _sym_stream_call
-
-        bsr = sym_banded_bsr(16, 128)
-        sym = sym_bsr_from_bsr(bsr).astype(jnp.bfloat16)
-        x = jnp.asarray(
-            np.random.default_rng(22).standard_normal(bsr.shape[1]).astype(np.float32)
-        )
-        y = _sym_stream_call(sym, x, 8, interpret=True)
-        assert y.dtype == jnp.float32
-        ref = bsr.matvec(x)
-        scale = float(jnp.max(jnp.abs(ref)))
-        np.testing.assert_allclose(y, ref, atol=2e-2 * scale)
-
-    def test_stream_wider_band(self):
-        # reach 2: columns r+1 and r+2 — both windows and the carry see
-        # off-strip scatter targets at strip boundaries
-        from eigenex_tpu.ops.pallas_spmv import _sym_stream_call
-        from eigenex_tpu.sparse.bsr import bsr_from_dense
-
-        rng = np.random.default_rng(23)
-        nbr, bm = 16, 8
-        n = nbr * bm
-        A = np.zeros((n, n), np.float32)
-        for r in range(nbr):
-            for c in (r, r + 1, r + 2):
-                if c < nbr:
-                    blk = rng.standard_normal((bm, bm)).astype(np.float32)
-                    A[r * bm:(r + 1) * bm, c * bm:(c + 1) * bm] = blk
-        A = (A + A.T) / 2
-        # pad block cols to the 128-lane rule via a larger block? the
-        # interpret path skips the tile checks inside _sym_stream_call,
-        # so bm=8 blocks are fine here
-        sym = sym_bsr_from_bsr(bsr_from_dense(A, (bm, bm)))
-        assert sym.band_reach == 2
-        x = jnp.asarray(rng.standard_normal(n).astype(np.float32))
-        y = _sym_stream_call(sym, x, 4, interpret=True)
-        np.testing.assert_allclose(y, A @ np.asarray(x), rtol=2e-5, atol=1e-4)
-
-    def test_dispatcher_routes_stream_when_resident_disabled(self):
-        bsr = sym_banded_bsr(16, 128)
-        sym = sym_bsr_from_bsr(bsr)
-        x = jnp.asarray(
-            np.random.default_rng(24).standard_normal(bsr.shape[1]).astype(np.float32)
-        )
-        # rows_per=0 disables the resident kernel; band_reach=1 is known,
-        # so the dispatcher must route to the streaming kernel (results
-        # must match the oracle either way)
-        y = sym_bsr_matvec_pallas(sym, x, interpret=True, rows_per=0)
-        np.testing.assert_allclose(y, bsr.matvec(x), rtol=2e-5, atol=1e-4)
-
-    def test_dispatcher_unknown_reach_falls_back(self):
-        bsr = sym_banded_bsr(16, 128)
-        sym0 = sym_bsr_from_bsr(bsr)
-        sym = SymBSRMatrix(
-            sym0.diag_data, sym0.upper_data, sym0.upper_cols, sym0.shape
-        )  # band_reach defaults to -1 (unknown)
-        assert sym.band_reach == -1
-        x = jnp.asarray(
-            np.random.default_rng(25).standard_normal(bsr.shape[1]).astype(np.float32)
-        )
-        y = sym_bsr_matvec_pallas(sym, x, interpret=True, rows_per=0)
-        np.testing.assert_allclose(y, bsr.matvec(x), rtol=2e-5, atol=1e-4)
+        got = getattr(op, method)(x)
+        want = _dense(sym) @ np.asarray(x, np.float64)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
-class TestSymStreamSpMM:
-    """Streaming symmetric SpMM (round 3): the matmat twin of the
-    streaming matvec kernel — no resident-panel size cap for banded
-    symmetric operators."""
+class TestBSRXlaPath:
+    """General BSR-ELL runs on XLA on every backend: gather + einsum
+    against the dense matrix across block shapes."""
 
-    def test_stream_matmat_matches_full(self):
-        from eigenex_tpu.ops.pallas_spmv import _sym_stream_matmat_call
-
-        bsr = sym_banded_bsr(32, 128)
-        sym = sym_bsr_from_bsr(bsr)
-        for p in (8, 16):
-            X = jnp.asarray(
-                np.random.default_rng(30 + p)
-                .standard_normal((bsr.shape[1], p))
-                .astype(np.float32)
-            )
-            x3 = X.reshape(-1, 128, p).transpose(0, 2, 1)
-            for strip in (8, 16):  # multi-strip: carry exercised
-                y = _sym_stream_matmat_call(sym, x3, strip, interpret=True)
-                out = y.transpose(0, 2, 1).reshape(bsr.shape[0], p)
-                np.testing.assert_allclose(out, bsr.matmat(X), rtol=2e-5, atol=1e-3)
-
-    def test_dispatcher_stream_fallback(self, monkeypatch):
-        """When the resident panels don't fit, a banded operand takes the
-        streaming SpMM instead of the XLA scatter-add."""
-        import eigenex_tpu.ops.pallas_spmv as ps
-
-        bsr = sym_banded_bsr(16, 128)
-        sym = sym_bsr_from_bsr(bsr)
-        X = jnp.asarray(
-            np.random.default_rng(31).standard_normal((bsr.shape[1], 5)).astype(np.float32)
-        )
-        monkeypatch.setattr(ps, "_pick_sym_rows_per", lambda *a, **k: 0)
-        called = {}
-        orig = ps._sym_stream_matmat_call
-
-        def spy(sym_, x3, strip, interpret):
-            called["strip"] = strip
-            return orig(sym_, x3, strip, interpret)
-
-        monkeypatch.setattr(ps, "_sym_stream_matmat_call", spy)
-        Y = ps.sym_bsr_matmat_pallas.__wrapped__(sym, X, interpret=True, rows_per=None)
-        assert called, "streaming SpMM was not dispatched"
-        np.testing.assert_allclose(Y, bsr.matmat(X), rtol=2e-5, atol=1e-3)
-
-
-class TestSymRingKernel:
-    """Far-reach ring streaming kernel (_sym_spmv_ring_kernel): band
-    reach too large for a VMEM strip, resident panels too large for
-    VMEM — the L=24 Heisenberg regime.  Interpret-mode vs the XLA
-    oracle."""
-
-    def _far_reach_sym(self, nbr, bm, reach, seed=0):
-        """Symmetric matrix whose upper blocks sit at distance `reach`
-        (plus a near band), forcing W > any strip."""
-        import scipy.sparse as sp
-        from eigenex_tpu.sparse.bsr import bsr_from_coo_arrays
-        from eigenex_tpu.sparse.sym_bsr import sym_bsr_from_bsr
-
-        rng = np.random.default_rng(seed)
-        n = nbr * bm
-        rows, cols, vals = [], [], []
-        # block-diagonal + near band + far couplings at `reach`
-        for br in range(nbr):
-            r0 = br * bm
-            d = rng.standard_normal((bm, bm))
-            d = (d + d.T) / 2
-            rr, cc = np.nonzero(np.abs(d) > 1.2)  # sparse-ish blocks
-            rows.append(r0 + rr); cols.append(r0 + cc); vals.append(d[rr, cc])
-            for dist in (1, reach):
-                if br + dist < nbr:
-                    o = rng.standard_normal((bm, bm))
-                    rr, cc = np.nonzero(np.abs(o) > 1.4)
-                    rows.append(r0 + rr); cols.append(r0 + dist * bm + cc)
-                    vals.append(o[rr, cc])
-                    rows.append(r0 + dist * bm + cc); cols.append(r0 + rr)
-                    vals.append(o[rr, cc])
-        r = np.concatenate(rows); c = np.concatenate(cols); v = np.concatenate(vals)
-        # merge duplicate symmetric diag entries
-        key = r.astype(np.int64) * n + c
-        order = np.argsort(key)
-        key, v = key[order], v[order]
-        uniq, start = np.unique(key, return_index=True)
-        v = np.add.reduceat(v, start)
-        r, c = (uniq // n).astype(np.int64), (uniq % n).astype(np.int64)
-        bsr = bsr_from_coo_arrays(r, c, v.astype(np.float32), (n, n), (bm, bm))
-        return sym_bsr_from_bsr(bsr)
-
-    @pytest.mark.parametrize("reach", [3, 7])
-    def test_ring_matches_xla(self, reach):
-        from eigenex_tpu.ops.pallas_spmv import _pick_ring_params, _sym_ring_call
-
-        nbr, bm = 32, 8
-        sym = self._far_reach_sym(nbr, bm, reach)
-        assert sym.band_reach == reach
-        s, W = _pick_ring_params(
-            nbr, sym.upper_cols.shape[1], bm, bm, sym.upper_data.dtype.itemsize, reach
-        )
-        assert s > 0 and W >= s + reach and W % s == 0
-        x = np.random.default_rng(1).standard_normal(sym.shape[1]).astype(np.float32)
-        y_ring = np.asarray(_sym_ring_call(sym, jnp.asarray(x), s, W, True))
-        y_ref = np.asarray(sym._xla_matvec(jnp.asarray(x)))
-        np.testing.assert_allclose(y_ring, y_ref, atol=1e-4 * np.abs(y_ref).max())
-
-    def test_ring_param_picker(self):
-        from eigenex_tpu.ops.pallas_spmv import _pick_ring_params
-
-        # L=24-like: nbr multiple of 32, ku 12, reach 485
-        s, W = _pick_ring_params(21152, 12, 128, 128, 2, 485)
-        assert s > 0 and W % s == 0 and W >= s + 485
-        # absurd reach: rings would blow VMEM
-        s, W = _pick_ring_params(21152, 12, 128, 128, 2, 500_000)
-        assert s == 0
-
-    @pytest.mark.parametrize("reach", [3, 7])
-    def test_ring_matmat_matches_xla(self, reach):
-        from eigenex_tpu.ops.pallas_spmv import (
-            _pick_ring_params_mm,
-            _sym_ring_matmat_call,
-        )
-
-        nbr, bm, p = 32, 8, 8
-        sym = self._far_reach_sym(nbr, bm, reach, seed=3)
-        s, W = _pick_ring_params_mm(
-            nbr, sym.upper_cols.shape[1], bm, bm, p,
-            sym.upper_data.dtype.itemsize, reach,
-        )
-        assert s > 0
-        X = np.random.default_rng(2).standard_normal((sym.shape[1], p)).astype(np.float32)
-        x3 = jnp.asarray(X.reshape(-1, bm, p).transpose(0, 2, 1))
-        Y = np.asarray(_sym_ring_matmat_call(sym, x3, s, W, True))
-        Y = Y.transpose(0, 2, 1).reshape(sym.shape[0], p)
-        Y_ref = np.asarray(sym._xla_matmat(jnp.asarray(X)))
-        np.testing.assert_allclose(Y, Y_ref, atol=1e-4 * np.abs(Y_ref).max())
+    @pytest.mark.parametrize("p", [None, 7])
+    @pytest.mark.parametrize("block", [(4, 4), (8, 8), (16, 16), (8, 128), (32, 128), (3, 5)])
+    def test_matches_dense(self, block, p):
+        rng = np.random.default_rng(sum(block))
+        n = 200
+        A = rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.03)
+        A = A.astype(np.float32)
+        r, c = np.nonzero(A)
+        bsr = bsr_from_coo_arrays(r, c, A[r, c], (n, n), block)
+        Ad = np.zeros(bsr.shape, np.float64)
+        Ad[:n, :n] = A
+        x = rng.standard_normal(bsr.shape[1] if p is None else (bsr.shape[1], p))
+        x = x.astype(np.float32)
+        got = bsr.matvec(jnp.asarray(x)) if p is None else bsr.matmat(jnp.asarray(x))
+        want = Ad @ x.astype(np.float64)
+        np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=1e-5 * np.abs(want).max())

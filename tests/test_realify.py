@@ -1,5 +1,5 @@
 """Real-embedding tests: complex Hermitian eigenproblems through the
-all-real (TPU-safe) path."""
+all-real path."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,7 +54,7 @@ def test_real_passthrough():
 
 def test_lanczos_on_realified_matches_complex_oracle():
     """The headline use: complex Hermitian ground state computed entirely
-    with real arithmetic (the TPU-compatible path)."""
+    with real arithmetic (the all-real path)."""
     n = 60
     b = COOBuilder(n, n, np.complex128)
     for i in range(n):

@@ -1,5 +1,5 @@
 """Hybrid-precision refinement: f32-grade Ritz pairs → 1e-10-grade
-eigenvalues (the TPU accuracy bridge)."""
+eigenvalues (the f32-device accuracy bridge)."""
 
 import jax.numpy as jnp
 import numpy as np

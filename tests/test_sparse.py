@@ -150,7 +150,7 @@ class TestSparseLanczos:
         A = random_sparse_dense(rng, n, n, density=0.3)
         A = (A + A.T) / 2
         bsr = bsr_from_dense(A, (4, 4))
-        op = bsr.as_linear_operator(use_pallas=False)
+        op = bsr.as_linear_operator()
         res = LanczosEigenSolver(
             op, LanczosOptions(max_eigenvalues=2, tolerance=1e-14, max_subspace=n, seed=1)
         ).compute()
